@@ -1,0 +1,210 @@
+"""Synthetic worlds, poses and rendered stereo images in numpy.
+
+A numpy twin of the JAX package's test helpers (``tests/helpers.py``:
+``make_world``, ``make_trajectory``, ``observe``, ``perturb_pose``,
+``pose_error``, ``render_world``), so that the port can be driven end to end
+on a machine without JAX. The random draws are the helpers' draws in the same
+order, so one seed gives the same world; poses are computed in float64 and
+stored as float32.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def _hat(w: np.ndarray) -> np.ndarray:
+    return np.array([[0.0, -w[2], w[1]], [w[2], 0.0, -w[0]], [-w[1], w[0], 0.0]])
+
+
+def se3_exp(xi) -> np.ndarray:
+    """[6] (omega, upsilon) -> [4,4] float64 (left-multiplicative convention
+    of the JAX package's geometry/se3.py)."""
+    xi = np.asarray(xi, np.float64)
+    w, v = xi[:3], xi[3:]
+    th2 = float(w @ w)
+    W = _hat(w)
+    if th2 < 1e-12:
+        A, B, C = 1.0, 0.5, 1.0 / 6.0
+    else:
+        th = np.sqrt(th2)
+        A = np.sin(th) / th
+        B = (1.0 - np.cos(th)) / th2
+        C = (1.0 - A) / th2
+    T = np.eye(4)
+    T[:3, :3] = np.eye(3) + A * W + B * (W @ W)
+    T[:3, 3] = (np.eye(3) + B * W + C * (W @ W)) @ v
+    return T
+
+
+def se3_log(T) -> np.ndarray:
+    """[4,4] -> [6] (omega, upsilon), float64, for rotations below pi."""
+    T = np.asarray(T, np.float64)
+    R, t = T[:3, :3], T[:3, 3]
+    cos = np.clip((np.trace(R) - 1.0) / 2.0, -1.0, 1.0)
+    th = np.arccos(cos)
+    vee = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    w = 0.5 * vee if th < 1e-6 else th / (2.0 * np.sin(th)) * vee
+    W = _hat(w)
+    if th < 1e-4:
+        D = 1.0 / 12.0
+    else:
+        A = np.sin(th) / th
+        B = (1.0 - np.cos(th)) / (th * th)
+        D = (1.0 - A / (2.0 * B)) / (th * th)
+    v = (np.eye(3) - 0.5 * W + D * (W @ W)) @ t
+    return np.concatenate([w, v])
+
+
+def pose_error(Ta, Tb):
+    """(rotation deg, translation) error between two poses, as
+    tests/helpers.pose_error: the norms of log(Ta Tb^-1)."""
+    d = se3_log(np.asarray(Ta, np.float64) @ np.linalg.inv(np.asarray(Tb, np.float64)))
+    return float(np.degrees(np.linalg.norm(d[:3]))), float(np.linalg.norm(d[3:]))
+
+
+def make_world(rng, n_points=500, extent=(8.0, 6.0, 14.0), z_min=2.0):
+    """Random 3D landmark cloud in front of the origin camera."""
+    return np.stack(
+        [
+            rng.uniform(-extent[0], extent[0], n_points),
+            rng.uniform(-extent[1], extent[1], n_points),
+            rng.uniform(z_min, extent[2], n_points),
+        ],
+        axis=-1,
+    ).astype(np.float32)
+
+
+def make_trajectory(n_frames=20, step=0.25, yaw_rate=0.01):
+    """Forward-motion trajectory with slight yaw; returns Tcw [F,4,4]."""
+    delta = se3_exp([0.0, yaw_rate, 0.0, 0.0, 0.0, -step]).astype(np.float32)
+    Ts = []
+    T = np.eye(4, dtype=np.float32)
+    for _ in range(n_frames):
+        Ts.append(T.copy())
+        T = (delta @ T).astype(np.float32)
+    return np.stack(Ts)
+
+
+def _project(cam, Tcw, pts):
+    """World points -> (uv [N,2], z [N]) in float32, as geometry/camera."""
+    Tcw = np.asarray(Tcw, np.float32)
+    pc = pts.astype(np.float32) @ Tcw[:3, :3].T + Tcw[:3, 3]
+    z = pc[:, 2]
+    zs = np.where(np.abs(z) < 1e-9, np.float32(1e-9), z)
+    u = np.float32(cam.fx) * pc[:, 0] / zs + np.float32(cam.cx)
+    v = np.float32(cam.fy) * pc[:, 1] / zs + np.float32(cam.cy)
+    return np.stack([u, v], -1), z
+
+
+def observe(cam, Tcw, pts, noise=0.3, rng=None, stereo_frac=1.0):
+    """Project world points under a pose; returns (uv [N,2], ur [N],
+    visible [N] bool, stereo [N] bool), with pixel noise."""
+    if rng is None:
+        rng = np.random.default_rng(0)
+    uv, z = _project(cam, Tcw, pts)
+    zs = np.where(np.abs(z) < 1e-9, np.float32(1e-9), z)
+    ur = uv[:, 0] - np.float32(cam.bf) / zs
+    vis = ((z > 0.2) & (uv[:, 0] >= 0) & (uv[:, 0] < cam.width)
+           & (uv[:, 1] >= 0) & (uv[:, 1] < cam.height))
+    uv = uv + rng.normal(0, noise, uv.shape)
+    ur = ur + rng.normal(0, noise, ur.shape)
+    stereo = vis & (rng.uniform(size=len(z)) < stereo_frac)
+    return uv.astype(np.float32), ur.astype(np.float32), vis, stereo
+
+
+def perturb_pose(rng, T, rot=0.02, trans=0.1):
+    xi = np.concatenate(
+        [rng.normal(0, rot, 3), rng.normal(0, trans, 3)]).astype(np.float32)
+    return (se3_exp(xi) @ np.asarray(T, np.float64)).astype(np.float32)
+
+
+def gaussian_blur(img: np.ndarray, ksize: int = 7, sigma: float = 2.0):
+    """Separable Gaussian blur with edge-replicated borders, float32, in the
+    JAX package's accumulation order (ops/pyramid.py:gaussian_blur)."""
+    x0 = np.arange(ksize) - (ksize - 1) / 2.0
+    kk = np.exp(-0.5 * (x0 / sigma) ** 2)
+    kk = (kk / kk.sum()).astype(np.float32)
+    pad = ksize // 2
+    H, W = img.shape
+    x = np.pad(img, ((pad, pad), (0, 0)), mode="edge")
+    acc = np.zeros_like(img)
+    for i in range(ksize):
+        acc = acc + kk[i] * x[i:i + H]
+    x = np.pad(acc, ((0, 0), (pad, pad)), mode="edge")
+    out = np.zeros_like(img)
+    for i in range(ksize):
+        out = out + kk[i] * x[:, i:i + W]
+    return out
+
+
+def render_world(cam, Tcw, pts, point_seed=0, bg=20.0, amp=180.0):
+    """Render a sparse textured image: each world point splats a small
+    point-unique constellation of 5 sub-blobs (distinctive, approximately
+    viewpoint-stable descriptors). Returns ([H,W] f32, uv, visible)."""
+    rng_p = np.random.default_rng(point_seed)
+    n = len(pts)
+    offs = rng_p.uniform(-4, 4, size=(n, 5, 2)).astype(np.float32)
+    amps = rng_p.uniform(0.4, 1.0, size=(n, 5)).astype(np.float32) * amp
+
+    uv, z = _project(cam, Tcw, pts)
+    vis = (z > 0.2) & (uv[:, 0] > 8) & (uv[:, 0] < cam.width - 8) \
+        & (uv[:, 1] > 8) & (uv[:, 1] < cam.height - 8)
+
+    img = np.full((cam.height, cam.width), bg, np.float32)
+    pos = (uv[:, None, :] + offs).reshape(-1, 2)
+    a = (amps * vis[:, None]).reshape(-1)
+    xi = np.round(pos[:, 0]).astype(int)
+    yi = np.round(pos[:, 1]).astype(int)
+    ok = (xi >= 0) & (xi < cam.width) & (yi >= 0) & (yi < cam.height)
+    np.add.at(img, (yi[ok], xi[ok]), a[ok])
+    img = gaussian_blur(img, ksize=5, sigma=1.0)
+    return np.clip(img, 0, 255).astype(np.float32), uv, vis
+
+
+def seed_landmarks(cam, Tcw, uv, depth, level, desc, valid, L: int) -> dict:
+    """An L-row local map from one stereo frame's features, with the JAX
+    package's formulas: X unprojected from depth and moved to the world
+    (slam/initializers.py:48-59); the normal is X minus the camera centre,
+    normalised; max_dist = |X - C| * 1.2^level and min_dist =
+    max_dist / 1.2^8 (core/mapstate.py:553-566 for one observation); the
+    descriptor is the feature's. Rows past the seeded landmarks have
+    lm_valid False. Returns numpy arrays named as track_stereo_frame's
+    arguments; descriptors keep the dtype they came in."""
+    uv, depth, level = (np.asarray(a) for a in (uv, depth, level))
+    desc = np.asarray(desc)
+    create = np.nonzero(np.asarray(valid) & (depth > 0))[0][:L]
+    n = len(create)
+    d = depth[create].astype(np.float64)
+    pc = np.stack([(uv[create, 0] - cam.cx) / cam.fx * d,
+                   (uv[create, 1] - cam.cy) / cam.fy * d, d], -1)
+    Twc = np.linalg.inv(np.asarray(Tcw, np.float64))
+    X = pc @ Twc[:3, :3].T + Twc[:3, 3]
+    po = X - Twc[:3, 3]
+    dist = np.linalg.norm(po, axis=-1)
+    max_dist = dist * 1.2 ** level[create].astype(np.float64)
+    table = {
+        "lm_pos": np.zeros((L, 3), np.float32),
+        "lm_normal": np.zeros((L, 3), np.float32),
+        "lm_desc": np.zeros((L, 8), desc.dtype),
+        "lm_max_dist": np.zeros((L,), np.float32),
+        "lm_min_dist": np.zeros((L,), np.float32),
+        "lm_valid": np.arange(L) < n,
+    }
+    table["lm_pos"][:n] = X
+    table["lm_normal"][:n] = po / np.maximum(dist[:, None], 1e-9)
+    table["lm_desc"][:n] = desc[create]
+    table["lm_max_dist"][:n] = max_dist
+    table["lm_min_dist"][:n] = max_dist / 1.2 ** 8
+    return table
+
+
+def render_stereo_pair(cam, Tcw, pts) -> np.ndarray:
+    """[2,H,W] left/right images of a rectified rig whose right camera sits
+    one baseline along +x of the left one (the right pose is
+    T(-baseline x) @ Tcw)."""
+    T_r = np.eye(4, dtype=np.float32)
+    T_r[0, 3] = -cam.bf / cam.fx
+    left, _, _ = render_world(cam, Tcw, pts)
+    right, _, _ = render_world(cam, (T_r @ np.asarray(Tcw, np.float32)).astype(np.float32), pts)
+    return np.stack([left, right])
