@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's per-frame stereo front end on one CUDA card.
+"""Drive the PyTorch port's stereo front end and tracker on one CUDA card.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card and
 the CUDA toolkit:
@@ -32,6 +32,24 @@ It exits non-zero, printing no result, where CUDA is not available. Phases:
    over the device's own rows (kernels, copies, sets), never over the
    operator rows that enclose them, and the device's busy share is the
    union of those rows over the frames' wall time.
+4. The tracker at the system benchmark's operating point: the same rendered
+   sequence, 60 frames 0.05 s apart (phase 2 takes its first 30), each
+   through extraction, stereo matching and ``slam.tracker.Tracker.track``
+   with MapCaps(K=64, L=16384, F=1024, O=8) and the default policy and
+   parameters: INITIALIZE -> POSTINIT -> NORMAL with the mapper
+   (triangulation, fusion, local BA, keyframe culling) on every keyframe.
+   Gates: every frame tracked and the tracker ends in NORMAL; ATE and the
+   worst frame against the rendered truth under bounds set from readings;
+   at least 5 keyframes, new triangulated landmarks, local BA with a finite
+   cost on every integrated keyframe after the 3rd, a map renewed by the
+   keyframes (more of its live landmarks from them than from
+   initialization) that keeps at least 3/4 of what initialization seeded;
+   K1 launched exactly 2 times a
+   POSTINIT/NORMAL frame plus once more where the motion model failed; the
+   local-map pose problems of 3 NORMAL frames re-solved by the plain solver
+   on the card within max|dT| 1e-3 and one inlier of the kernel. Then the
+   median ms per frame with and without a keyframe, per mapper call, and
+   the peak device memory.
 
 Prints the card line, one JSON line of kernel results, and last
 ``{"ok": true, "device": {...}}``. Any failure raises.
@@ -50,7 +68,10 @@ import torch
 
 H, W = 720, 1280
 FX, BF = 700.0, 84.0          # bench.py's SLAM camera: fx = fy, bf = baseline * fx
-N_FRAMES = 30
+N_FRAMES = 30                 # phase 2
+N_TRACK = 60                  # phase 4; phase 2 takes the first N_FRAMES
+FRAME_DT = 0.05               # s between frames
+TRACK_CAPS = (64, 16384, 1024, 8)   # MapCaps K, L, F, O of bench.py
 CAPACITY = 1024
 N_LANDMARKS = 4096
 N_POINTS = 4000
@@ -70,6 +91,14 @@ MAX_T = 0.08
 MAX_D_ROT, MAX_D_T, MAX_D_INLIERS = 0.05, 0.01, 10
 MAX_ABS_DT_PROBLEM, MAX_D_INLIERS_PROBLEM = 1e-4, 1
 MAX_ABS_DT_SLICE = 1e-3
+# phase 4: the tracker against the rendered truth, and what the mapper must
+# have done. Readings (PERF.md): ATE 0.0237 m, worst frame 0.0617 m, 785 live
+# landmarks of 854 seeded at the end. The ATE bound is 1.5x its reading; the
+# per-frame bound stays phase 2's 0.08 m, under 1.5x the worst frame.
+MAX_T_TRACK, MAX_ATE = 0.08, 0.035
+MIN_KEYFRAMES = 5
+MIN_LIVE_OF_SEEDED = 0.75     # live landmarks at the end / seeded at init
+N_COMPARE = 3
 
 
 def log(msg: str) -> None:
@@ -232,33 +261,47 @@ def profile_frames(track, poses, dev, frame_ms: float, n: int = 5) -> None:
         log(f"  {us / 1e3 / n:8.3f} ms/frame {c // n:5d} rows/frame  {name[:90]}")
 
 
-def phase2(dev):
+def camera_and_config():
+    """The reference's SLAM camera (bench.py) and its ORB settings."""
+    from hyslam_tpu_torch.features.extractor import ExtractorConfig
+    from hyslam_tpu_torch.geometry.camera import Camera
+
+    cam = Camera(fx=FX, fy=FX, cx=W / 2, cy=H / 2, width=W, height=H, bf=BF,
+                 th_depth=35.0)
+    return cam, ExtractorConfig(n_features=1000, n_levels=8)
+
+
+def render_sequence(cam, dev, n: int):
+    """n stereo pairs of a world of N_POINTS points from default_rng(0), the
+    camera moving 0.08 m forward with 0.002 rad of yaw per frame. Returns
+    (poses [n] numpy, pairs [n,2,H,W] on dev)."""
+    from hyslam_tpu_torch.utils import synth
+
+    rng = np.random.default_rng(0)
+    pts = np.stack([rng.uniform(-14, 14, N_POINTS), rng.uniform(-9, 9, N_POINTS),
+                    rng.uniform(3, 45, N_POINTS)], -1).astype(np.float32)
+    delta = synth.se3_exp([0.0, 0.002, 0.0, 0.0, 0.0, -0.08])
+    poses = [np.eye(4, dtype=np.float32)]
+    for _ in range(n - 1):
+        poses.append((delta @ poses[-1]).astype(np.float32))
+    t0 = time.perf_counter()
+    pairs = torch.from_numpy(np.stack(
+        [synth.render_stereo_pair(cam, T, pts) for T in poses])).to(dev)
+    log(f"rendered {n} stereo pairs {W}x{H} in {time.perf_counter() - t0:.1f} s")
+    return poses, pairs
+
+
+def phase2(dev, cam, cfg, poses, pairs):
     from hyslam_tpu_torch import interop
     from hyslam_tpu_torch.features.atlas import extract_atlas_batch
-    from hyslam_tpu_torch.features.extractor import ExtractorConfig
     from hyslam_tpu_torch.core.frame import feature_inv_sigma2
-    from hyslam_tpu_torch.geometry.camera import Camera
     from hyslam_tpu_torch.ops.pose_opt_cuda import pose_optimization_cuda
     from hyslam_tpu_torch.slam.frontend import (
         match_stereo_pair, pose_problem, track_stereo_frame)
     from hyslam_tpu_torch.solver.pose_opt import pose_optimization, pose_optimization_fast
     from hyslam_tpu_torch.utils import synth
 
-    cam = Camera(fx=FX, fy=FX, cx=W / 2, cy=H / 2, width=W, height=H, bf=BF,
-                 th_depth=35.0)
-    cfg = ExtractorConfig(n_features=1000, n_levels=8)
-    rng = np.random.default_rng(0)
-    pts = np.stack([rng.uniform(-14, 14, N_POINTS), rng.uniform(-9, 9, N_POINTS),
-                    rng.uniform(3, 45, N_POINTS)], -1).astype(np.float32)
-    delta = synth.se3_exp([0.0, 0.002, 0.0, 0.0, 0.0, -0.08])
-    poses = [np.eye(4, dtype=np.float32)]
-    for _ in range(N_FRAMES - 1):
-        poses.append((delta @ poses[-1]).astype(np.float32))
-    t0 = time.perf_counter()
-    pairs = torch.from_numpy(np.stack(
-        [synth.render_stereo_pair(cam, T, pts) for T in poses])).to(dev)
-    log(f"phase 2: rendered {N_FRAMES} stereo pairs {W}x{H} in "
-        f"{time.perf_counter() - t0:.1f} s")
+    poses, pairs = poses[:N_FRAMES], pairs[:N_FRAMES]
 
     # seed the local map from frame 0's stereo features
     f0 = match_stereo_pair(cam, extract_atlas_batch(pairs[0], cfg, CAPACITY), pairs[0])
@@ -366,6 +409,119 @@ def phase2(dev):
     return launches
 
 
+def phase4(dev, cam, cfg, poses, pairs):
+    """The tracker on the whole sequence; see the module docstring."""
+    from hyslam_tpu_torch.core.mapstate import MapCaps, n_live_landmarks
+    from hyslam_tpu_torch.features.atlas import extract_atlas_batch
+    from hyslam_tpu_torch.ops.pose_opt_cuda import pose_optimization_cuda
+    from hyslam_tpu_torch.slam.frontend import match_stereo_pair
+    from hyslam_tpu_torch.slam.tracker import State, Tracker
+    from hyslam_tpu_torch.solver.pose_opt import pose_optimization
+    from hyslam_tpu_torch.utils import synth
+
+    tracker = Tracker(cam=cam, caps=MapCaps(*TRACK_CAPS), device=dev)
+    mapper_ms = []
+    integrate = tracker.mapper.integrate_keyframe
+
+    def timed_integrate(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = integrate(*args, **kwargs)
+        torch.cuda.synchronize()
+        mapper_ms.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    tracker.mapper.integrate_keyframe = timed_integrate
+    n = len(poses)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: counts to 0, track every frame, read the counts
+    pose_optimization_cuda.launches = 0
+    frame_ms, compare = [], []
+    for i in range(n):
+        t = time.perf_counter()
+        fl = match_stereo_pair(cam, extract_atlas_batch(pairs[i], cfg, CAPACITY), pairs[i])
+        tel = tracker.track(fl, FRAME_DT * i, i)
+        torch.cuda.synchronize()
+        frame_ms.append((1e3 * (time.perf_counter() - t), tel.kf_inserted >= 0))
+        if tel.state == "NORMAL" and len(compare) < N_COMPARE:
+            compare.append((i, tracker.last_result, tel.n_inliers))
+    launches = pose_optimization_cuda.launches
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+
+    tels = tracker.telemetry
+    n_min = tracker.params.motion.n_min_matches
+    expected = sum(2 + (t.n_motion < n_min) for t in tels
+                   if t.state in ("POSTINIT", "NORMAL"))
+    est = tracker.traj.Tcw[:n].cpu().numpy()
+    errs = []
+    for i, t in enumerate(tels):
+        rot, tr = synth.pose_error(est[i], poses[i])
+        errs.append(tr)
+        log(f"  frame {i}: {t.state} motion {t.n_motion} inliers {t.n_inliers} "
+            f"local {t.n_local} kf {t.kf_inserted} seeded {t.n_seeded} "
+            f"rot {rot:.5f} deg t {tr:.6f} m {t.mapper_stats or ''}")
+    ate = float(np.sqrt(np.mean(np.square(errs))))
+    worst = int(np.argmax(errs))
+    kf_stats = [t.mapper_stats for t in tels if t.mapper_stats]
+    n_kf = sum(t.kf_inserted >= 0 for t in tels)
+    n_tri = sum(s.get("triangulated", 0) for s in kf_stats)
+    live = int(n_live_landmarks(tracker.ms))
+    lm = tracker.ms.lm
+    live_init = int((lm.valid & ~lm.bad & (lm.first_kf == 0)).sum())
+    med = {kf: statistics.median(ms) if (ms := [m for m, k in frame_ms if k == kf]) else None
+           for kf in (False, True)}
+    log(f"phase 4: {n} frames, ATE {ate:.6f} m, worst frame {worst} at {errs[worst]:.6f} m; "
+        f"{n_kf} keyframes, {n_tri} landmarks triangulated, {live} live landmarks, "
+        f"{live_init} of them from initialization (which seeded {tels[0].n_seeded}); "
+        f"K1 launches {launches}, expected {expected}")
+    log("phase 4 timing: " + json.dumps({
+        "median_ms_frame_without_keyframe": med[False],
+        "median_ms_frame_with_keyframe": med[True],
+        "median_ms_integrate_keyframe": statistics.median(mapper_ms),
+        "mapper_calls": len(mapper_ms),
+        "peak_device_mb": peak_mb,
+    }))
+
+    # the tracker's own local-map pose problems through the plain solver
+    compared = []
+    for i, nf, n_inl in compare:
+        p = pose_optimization(*nf.problem)
+        err = float((nf.Tcw - p.Tcw).abs().max())
+        compared.append((i, err, abs(n_inl - int(p.num_inliers))))
+        log(f"phase 4 frame {i}: kernel vs plain max|dT| {err:.3e} inliers "
+            f"{n_inl} vs {int(p.num_inliers)}")
+
+    gates = {
+        "states INITIALIZE -> POSTINIT -> NORMAL, every frame tracked":
+            tels[0].state == "INITIALIZE" and tels[1].state == "POSTINIT"
+            and tracker.state == State.NORMAL and len(tels) == n,
+        f"trajectory of {n} finite poses":
+            int(tracker.traj.size) == n and bool(np.isfinite(est).all()),
+        f"ATE < {MAX_ATE} m and every frame < {MAX_T_TRACK} m":
+            ate < MAX_ATE and errs[worst] < MAX_T_TRACK,
+        f">= {MIN_KEYFRAMES} keyframes and landmarks triangulated":
+            n_kf >= MIN_KEYFRAMES and n_tri > 0,
+        "the map renewed: more live landmarks from keyframes than from initialization":
+            live - live_init > live_init,
+        f"at least {MIN_LIVE_OF_SEEDED} as many live landmarks as initialization seeded":
+            live >= MIN_LIVE_OF_SEEDED * tels[0].n_seeded,
+        "local BA with a finite cost on every integrated keyframe after the 3rd":
+            all(np.isfinite(st.get("ba_cost", float("nan"))) for st in kf_stats[3:]),
+        f"K1 launches {launches} == 2 a tracked frame + motion-model failures {expected}":
+            launches == expected,
+        f"{len(compared)} NORMAL frames: kernel and plain solver within "
+        f"{MAX_ABS_DT_SLICE} and {MAX_D_INLIERS_PROBLEM} inlier":
+            len(compared) == N_COMPARE and all(
+                e < MAX_ABS_DT_SLICE and d <= MAX_D_INLIERS_PROBLEM for _, e, d in compared),
+    }
+    failed = [g for g, ok in gates.items() if not ok]
+    if failed:
+        raise AssertionError("phase 4 failed: " + "; ".join(failed))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -379,7 +535,10 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
     phase0()
     max_abs_err, k_ms, p_ms = phase1(dev)
-    launches = phase2(dev)
+    cam, cfg = camera_and_config()
+    poses, pairs = render_sequence(cam, dev, N_TRACK)
+    launches = phase2(dev, cam, cfg, poses, pairs)
+    launches += phase4(dev, cam, cfg, poses, pairs)
     log(json.dumps({"kernels": [{
         "name": "pose_opt",
         "route": "cuda",
@@ -393,7 +552,7 @@ def main() -> int:
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
+        "count": 1,                       # the one card this run drives
     }}))
     return 0
 

@@ -19,6 +19,7 @@ from hyslam_tpu_torch.features.extractor import ExtractorConfig, level_budgets
 from hyslam_tpu_torch.ops.fast import fast_scores, nms3x3
 from hyslam_tpu_torch.ops.orb import orient_and_describe
 from hyslam_tpu_torch.ops.pyramid import pyramid_shapes, resize_bilinear
+from hyslam_tpu_torch.ops.indexing import top_k as _top_k
 
 
 class AtlasLayout(NamedTuple):
@@ -48,14 +49,6 @@ def _build_canvas(img: torch.Tensor, layout: AtlasLayout, cfg: ExtractorConfig):
             cur = resize_bilinear(cur, (hl, wl))
         parts.append(F.pad(cur, (0, 0, 0, H0 - hl)))
     return torch.cat(parts, dim=-1)
-
-
-def _top_k(x: torch.Tensor, k: int):
-    """Top k along the last axis with ties broken toward the lower index,
-    as ``lax.top_k`` breaks them (``torch.topk`` promises no tie order,
-    and most NMS scores are tied at 0)."""
-    s, i = torch.sort(x, dim=-1, descending=True, stable=True)
-    return s[..., :k], i[..., :k]
 
 
 def _select_level(

@@ -1,20 +1,30 @@
-"""Local-map projection matching as dense masked score matrices (counterpart
-of ``hyslam_tpu/features/matcher.py``; only the TrackLocalMap path and its
-helpers are ported). -1 marks "no match"."""
+"""The matching engine as dense masked score matrices (counterpart of
+``hyslam_tpu/features/matcher.py``): projection search against a landmark
+set or the last frame, descriptor matching, and the epipolar search for
+triangulation. -1 marks "no match"; ties go to the first index everywhere,
+as ``jnp.argmin`` and ``lax.top_k`` break them."""
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from hyslam_tpu_torch.core.frame import FrameFeatures
-from hyslam_tpu_torch.geometry import se3
+from hyslam_tpu_torch.geometry import se3, so3
 from hyslam_tpu_torch.geometry.camera import Camera
 from hyslam_tpu_torch.ops.hamming import hamming_matrix
+from hyslam_tpu_torch.ops.indexing import top_k
 
 # copied from hyslam_tpu/features/matcher.py
 TH_HIGH = 100
+TH_LOW = 50
+HISTO_BINS = 30
+# 2 pi as the float32 the JAX package's weak-typed constant becomes, and its
+# float32 reciprocal: XLA turns a division by a constant into this product
+_TWO_PI = float(np.float32(2.0 * np.pi))
+_INV_TWO_PI = float(np.float32(1.0) / np.float32(2.0 * np.pi))
 N_LEVELS = 8        # defaults only; per-camera values flow in from
 SCALE = 1.2         # ExtractorConfig via the n_levels/scale_factor args
 BIG = 1 << 16
@@ -31,6 +41,24 @@ def predict_level(dist: torch.Tensor, max_dist: torch.Tensor,
                                    device=dist.device))
     lv = torch.ceil(torch.log(ratio) / log_s)
     return lv.clamp(0, n_levels - 1).to(torch.int32)
+
+
+def rotation_consistency(delta_angle: torch.Tensor, matched: torch.Tensor):
+    """Keep only matches whose orientation change falls in the 3 dominant
+    bins of a 30-bin histogram (2nd and 3rd dropped below 10% of the 1st).
+    The angle is wrapped as ``jnp.mod`` does: an exact fmod, then + 2 pi
+    where negative; the bin is taken from the same float32 product XLA
+    computes, so no match changes bin at a boundary."""
+    r = torch.fmod(delta_angle, _TWO_PI)
+    frac = torch.where(r < 0, r + _TWO_PI, r) * _INV_TWO_PI
+    bins = (frac * HISTO_BINS).to(torch.int32).clamp(0, HISTO_BINS - 1).long()
+    hist = torch.zeros(HISTO_BINS, dtype=torch.int32, device=bins.device
+                       ).index_add(0, bins, matched.to(torch.int32))
+    top3_v, top3_i = top_k(hist, 3)
+    keep_k = top3_v.to(torch.float32) >= 0.1 * top3_v[0].to(torch.float32)
+    good_bins = torch.zeros(HISTO_BINS, dtype=torch.bool, device=bins.device
+                            ).index_put((top3_i,), keep_k & (top3_v > 0))
+    return matched & good_bins[bins]
 
 
 def _dedup_feature_side(dist_qf: torch.Tensor, match_q: torch.Tensor,
@@ -140,3 +168,119 @@ def search_by_projection_landmarks(
         lm_for_feature=lm_for_feature,
         n_matches=torch.sum(lm_for_feature >= 0, dtype=torch.int32),
     )
+
+
+def search_by_projection_frame(
+    cam: Camera,
+    cur: FrameFeatures,
+    Tcw_pred: torch.Tensor,
+    last: FrameFeatures,
+    last_lm_id: torch.Tensor,     # [F] landmark ids of the last frame
+    last_lm_pos: torch.Tensor,    # [F, 3] world positions for those ids
+    th: float = 1.0,
+    n_levels: int = N_LEVELS,
+    scale_factor: float = SCALE,
+):
+    """Motion-model matching against the last frame (FeatureMatcher.cc:145
+    path): project the last frame's landmarks with the predicted pose,
+    window-search by level, rotation-consistency filter. Returns ([F_cur]
+    landmark ids, count)."""
+    del n_levels
+    has_lm = (last_lm_id >= 0) & last.valid
+    pc = se3.apply(Tcw_pred, last_lm_pos)
+    z = pc[..., 2]
+    zs = torch.where(torch.abs(z) < 1e-9, 1e-9, z)
+    u = cam.fx * pc[..., 0] / zs + cam.cx
+    v = cam.fy * pc[..., 1] / zs + cam.cy
+    in_img = (u >= 0) & (u < cam.width) & (v >= 0) & (v < cam.height) & (z > 0)
+    q_ok = has_lm & in_img
+
+    lv = last.level
+    radius = th * scale_factor ** lv.to(torch.float32)
+    duv = torch.stack([u, v], -1)[:, None, :] - cur.uv[None, :, :]
+    within = torch.sum(duv * duv, dim=-1) <= (radius[:, None] ** 2)
+    lvl_ok = (cur.level[None, :] >= lv[:, None] - 1) & (cur.level[None, :] <= lv[:, None] + 1)
+    ok_qf = q_ok[:, None] & within & lvl_ok & cur.valid[None, :]
+
+    d = torch.where(ok_qf, hamming_matrix(last.desc, cur.desc), BIG)
+    best_i = torch.argmin(d, dim=1)
+    best_d = torch.gather(d, 1, best_i[:, None])[:, 0]
+    ok_q = q_ok & (best_d <= TH_HIGH)
+    ok_q = rotation_consistency(cur.angle[best_i] - last.angle, ok_q)
+    keep = _dedup_feature_side(d, best_i, ok_q)
+
+    F_ = cur.capacity
+    lm_ids = torch.full((F_ + 1,), -1, dtype=torch.int32, device=d.device)
+    lm_ids[torch.where(keep, best_i, F_)] = last_lm_id.to(torch.int32)
+    lm_ids = lm_ids[:F_]
+    return lm_ids, torch.sum(lm_ids >= 0, dtype=torch.int32)
+
+
+def match_descriptors(
+    desc_a: torch.Tensor, valid_a: torch.Tensor, angle_a: torch.Tensor,
+    desc_b: torch.Tensor, valid_b: torch.Tensor, angle_b: torch.Tensor,
+    max_dist: int = TH_LOW, ratio: float = 0.75, check_rotation: bool = True,
+):
+    """Descriptor matching A -> B with ratio and rotation tests (the
+    SearchByBoW analog, dense). Returns ([A] index into B or -1, count)."""
+    ok_ab = valid_a[:, None] & valid_b[None, :]
+    d = torch.where(ok_ab, hamming_matrix(desc_a, desc_b), BIG)
+    best_i = torch.argmin(d, dim=1)
+    best_d = torch.gather(d, 1, best_i[:, None])[:, 0]
+    d2 = d.clone()
+    d2[torch.arange(d.shape[0], device=d.device), best_i] = BIG
+    second_d = torch.amin(d2, dim=1)
+    ok = valid_a & (best_d <= max_dist) & (
+        best_d.to(torch.float32) <= ratio * second_d.to(torch.float32))
+    if check_rotation:
+        ok = rotation_consistency(angle_b[best_i] - angle_a, ok)
+    keep = _dedup_feature_side(d, best_i, ok)
+    out = torch.where(keep, best_i, -1).to(torch.int32)
+    return out, torch.sum(out >= 0, dtype=torch.int32)
+
+
+def fundamental_from_poses(cam1: Camera, Tcw1: torch.Tensor,
+                           cam2: Camera, Tcw2: torch.Tensor) -> torch.Tensor:
+    """Fundamental matrix mapping image-1 points to image-2 epilines,
+    F = K2^-T [t21]x R21 K1^-1 with (R21, t21) = Tcw2 @ Tcw1^-1; the
+    intrinsics are inverted in closed form."""
+    T21 = Tcw2 @ se3.inverse(Tcw1)
+    dev = Tcw1.device
+    K1i = cam1.K_inv(device=dev)
+    K2i = cam2.K_inv(device=dev)
+    return K2i.T @ so3.hat(T21[:3, 3]) @ T21[:3, :3] @ K1i
+
+
+def search_for_triangulation(
+    cam: Camera,
+    f1: FrameFeatures,
+    f2: FrameFeatures,
+    unmatched1: torch.Tensor,   # [F] bool: feature has no landmark yet
+    unmatched2: torch.Tensor,
+    F12: torch.Tensor,          # [3, 3] fundamental matrix kf1 -> kf2
+    epi_sigma: float = 1.0,
+    scale_factor: float = SCALE,
+):
+    """Epipolar-constrained matching of unmatched features between two
+    keyframes (SearchForTriangulation, FeatureMatcher.cc:373): Hamming
+    TH_LOW, point-to-epiline chi2 gate (3.84 sigma^2 at the candidate's
+    level) and rotation consistency. Returns ([F1] index into f2, count)."""
+    del cam
+    dev = f1.uv.device
+    x1 = torch.cat([f1.uv, torch.ones((f1.capacity, 1), device=dev)], dim=-1)
+    l2 = x1 @ F12.T
+    x2 = torch.cat([f2.uv, torch.ones((f2.capacity, 1), device=dev)], dim=-1)
+    num = torch.abs(l2 @ x2.T)
+    den = torch.sqrt(l2[:, 0] ** 2 + l2[:, 1] ** 2)[:, None]
+    epi_d2 = (num / torch.clamp_min(den, 1e-9)) ** 2
+    sigma2 = epi_sigma * scale_factor ** (2.0 * f2.level.to(torch.float32))
+    epi_ok = epi_d2 < 3.84 * sigma2[None, :]
+    ok_ab = (f1.valid & unmatched1)[:, None] & (f2.valid & unmatched2)[None, :] & epi_ok
+    d = torch.where(ok_ab, hamming_matrix(f1.desc, f2.desc), BIG)
+    best_i = torch.argmin(d, dim=1)
+    best_d = torch.gather(d, 1, best_i[:, None])[:, 0]
+    ok = (f1.valid & unmatched1) & (best_d <= TH_LOW)
+    ok = rotation_consistency(f2.angle[best_i] - f1.angle, ok)
+    keep = _dedup_feature_side(d, best_i, ok)
+    out = torch.where(keep, best_i, -1).to(torch.int32)
+    return out, torch.sum(out >= 0, dtype=torch.int32)

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -31,6 +32,24 @@ class Camera(NamedTuple):
     def baseline(self) -> float:
         return self.bf / self.fx if self.bf > 0 else 0.0
 
+    @property
+    def close_depth(self) -> float:
+        """Depth below which a stereo point counts as close (thDepth *
+        baseline); infinite for a monocular camera."""
+        return self.th_depth * self.baseline if self.bf > 0 else math.inf
+
+    def K(self, dtype=torch.float32, device=None) -> torch.Tensor:
+        return torch.tensor(
+            [[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]],
+            dtype=dtype, device=device)
+
+    def K_inv(self, dtype=torch.float32, device=None) -> torch.Tensor:
+        """The closed-form inverse of K (no general matrix inverse)."""
+        return torch.tensor(
+            [[1.0 / self.fx, 0.0, -self.cx / self.fx],
+             [0.0, 1.0 / self.fy, -self.cy / self.fy], [0.0, 0.0, 1.0]],
+            dtype=dtype, device=device)
+
 
 def project(cam: Camera, pts_cam: torch.Tensor):
     """Camera-frame points [..., 3] -> (pixel coords [..., 2], depth [...])."""
@@ -39,3 +58,10 @@ def project(cam: Camera, pts_cam: torch.Tensor):
     u = cam.fx * pts_cam[..., 0] / zsafe + cam.cx
     v = cam.fy * pts_cam[..., 1] / zsafe + cam.cy
     return torch.stack([u, v], dim=-1), z
+
+
+def backproject(cam: Camera, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """Pixel coords [..., 2] + depth [...] -> camera-frame points [..., 3]."""
+    x = (uv[..., 0] - cam.cx) / cam.fx * depth
+    y = (uv[..., 1] - cam.cy) / cam.fy * depth
+    return torch.stack([x, y, depth], dim=-1)

@@ -56,3 +56,18 @@ def exp(xi: torch.Tensor) -> torch.Tensor:
     v = xi[..., 3:]
     t = torch.einsum("...ij,...j->...i", so3.left_jacobian(w), v)
     return from_Rt(so3.exp(w), t)
+
+
+def log(T: torch.Tensor) -> torch.Tensor:
+    """Logarithm map [..., 4, 4] -> [..., 6] (omega, upsilon)."""
+    w = so3.log(rotation(T))
+    v = torch.einsum("...ij,...j->...i", so3.left_jacobian_inv(w),
+                     translation(T))
+    return torch.cat([w, v], dim=-1)
+
+
+def interpolate(T0: torch.Tensor, T1: torch.Tensor, alpha) -> torch.Tensor:
+    """Geodesic interpolation exp(alpha * log(T1 T0^-1)) T0."""
+    alpha = torch.as_tensor(alpha, dtype=T0.dtype, device=T0.device)
+    delta = log(compose(T1, inverse(T0)))
+    return compose(exp(alpha[..., None] * delta), T0)

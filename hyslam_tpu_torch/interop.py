@@ -3,8 +3,9 @@
 The port has no learned weights: its "parameters" are constant tables,
 rebuilt in the port from the same numpy code, and the map state. These
 functions turn JAX-package arrays, given as numpy (``np.asarray`` of a JAX
-array), into the port's tensors and back. Objects are read by field name,
-so nothing here imports the JAX package.
+array), into the port's tensors and back: features, cameras, extractor
+configs, landmark tables, whole map states and trajectories. Objects are
+read by field name, so nothing here imports the JAX package.
 
 Descriptors travel as the int32 bit-view of the JAX package's uint32 lanes:
 every bit is kept, and ``features_to_numpy`` restores uint32.
@@ -17,7 +18,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from hyslam_tpu_torch.core import mapstate as M
 from hyslam_tpu_torch.core.frame import FrameFeatures
+from hyslam_tpu_torch.core.trajectory import Trajectory
 from hyslam_tpu_torch.features.extractor import ExtractorConfig
 from hyslam_tpu_torch.geometry.camera import Camera
 
@@ -101,3 +104,56 @@ def landmarks_to_numpy(t: LandmarkTable) -> dict:
          for k in ("lm_pos", "lm_normal", "lm_max_dist", "lm_min_dist", "lm_valid")}
     d["lm_desc"] = desc_to_numpy(t.lm_desc)
     return d
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy (or JAX) array -> tensor; uint32 travels as its int32 view."""
+    a = np.array(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a).to(device)
+
+
+def _tuple_from(cls, src, device):
+    get = src.__getitem__ if isinstance(src, dict) else (lambda k: getattr(src, k))
+    return cls(**{k: _tensor(get(k), device) for k in cls._fields})
+
+
+def _tuple_to(t) -> dict:
+    """NamedTuple of tensors -> dict of numpy; descriptor fields back to
+    uint32."""
+    return {k: (desc_to_numpy(v) if k == "desc" else v.detach().cpu().numpy())
+            for k, v in t._asdict().items()}
+
+
+def map_state_from_numpy(ms, device=None):
+    """A JAX-package MapState (read by field name, its arrays through
+    numpy), or the dict from ``map_state_to_numpy`` -> the port's MapState
+    on ``device``, bit for bit."""
+    get = ms.__getitem__ if isinstance(ms, dict) else (lambda k: getattr(ms, k))
+    return M.MapState(
+        kf=_tuple_from(M.KeyFrameArena, get("kf"), device),
+        lm=_tuple_from(M.LandmarkArena, get("lm"), device),
+        maps=_tuple_from(M.MapTable, get("maps"), device),
+        **{k: _tensor(get(k), device) for k in ("covis", "next_kf", "next_lm")},
+    )
+
+
+def map_state_to_numpy(ms) -> dict:
+    """The port's MapState -> nested dict of numpy arrays in the JAX
+    package's dtypes (uint32 descriptors): {"kf": {...}, "lm": {...},
+    "maps": {...}, "covis", "next_kf", "next_lm"}."""
+    out = {k: _tuple_to(getattr(ms, k)) for k in ("kf", "lm", "maps")}
+    out.update({k: getattr(ms, k).detach().cpu().numpy()
+                for k in ("covis", "next_kf", "next_lm")})
+    return out
+
+
+def trajectory_from_numpy(traj, device=None):
+    """A JAX-package Trajectory (or the dict from ``trajectory_to_numpy``)
+    -> the port's Trajectory on ``device``."""
+    return _tuple_from(Trajectory, traj, device)
+
+
+def trajectory_to_numpy(traj) -> dict:
+    return _tuple_to(traj)

@@ -19,9 +19,26 @@ def unpack_bits(desc: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     return bits.reshape(desc.shape[:-1] + (256,)).to(dtype)
 
 
+def _popcount_words(w: torch.Tensor) -> torch.Tensor:
+    """Set bits of each 32-bit word [...] -> [...] int64, by the SWAR bit
+    count on the word's unsigned value held in int64 (no product
+    overflows), so no [..., 256] bit planes are materialised."""
+    x = w.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
 def popcount(desc: torch.Tensor) -> torch.Tensor:
     """Total set bits per descriptor [..., 8] -> [...] int32."""
-    return unpack_bits(desc, torch.int32).sum(dim=-1, dtype=torch.int32)
+    return _popcount_words(desc).sum(dim=-1).to(torch.int32)
+
+
+def hamming_pairwise(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise Hamming distance between broadcast-compatible descriptor
+    arrays [..., 8] -> [...] int32 (XOR, then the bit count)."""
+    return popcount(torch.bitwise_xor(a, b))
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:

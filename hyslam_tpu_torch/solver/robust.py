@@ -15,3 +15,10 @@ def huber_weight(chi2: torch.Tensor, delta2) -> torch.Tensor:
     chi2: 1 inside the basin, delta/sqrt(chi2) outside."""
     safe = torch.clamp_min(chi2, 1e-12)
     return torch.where(chi2 <= delta2, 1.0, torch.sqrt(delta2 / safe))
+
+
+def huber_rho(chi2: torch.Tensor, delta2) -> torch.Tensor:
+    """Huber cost rho(chi2), for total-cost comparisons."""
+    d = torch.sqrt(torch.as_tensor(delta2, dtype=chi2.dtype, device=chi2.device))
+    e = torch.sqrt(torch.clamp_min(chi2, 0.0))
+    return torch.where(chi2 <= delta2, chi2, 2.0 * d * e - delta2)

@@ -88,3 +88,42 @@ def map_args_jax(table: dict) -> tuple:
 def map_args_torch(table: dict) -> interop.LandmarkTable:
     return interop.landmarks_from_numpy(
         *(table[k] for k in interop.LandmarkTable._fields))
+
+
+def tree_np(x):
+    """A NamedTuple / dict tree of JAX arrays or tensors -> nested dict of
+    numpy arrays (descriptor fields as uint32)."""
+    if isinstance(x, dict):
+        return {k: tree_np(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)) and not hasattr(x, "_asdict"):
+        return {str(i): tree_np(v) for i, v in enumerate(x)}
+    if hasattr(x, "_asdict"):
+        return {k: (np.asarray(v.detach().cpu().numpy()).view(np.uint32)
+                    if k == "desc" and isinstance(v, torch.Tensor) else tree_np(v))
+                for k, v in x._asdict().items()}
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def assert_tree_close(got, want, atol=1e-5, rtol=0.0, path=""):
+    """Integer and bool leaves equal, float leaves within atol (+ rtol)."""
+    if isinstance(want, dict):
+        assert set(got) == set(want), path
+        for k in want:
+            assert_tree_close(got[k], want[k], atol, rtol, f"{path}.{k}")
+        return
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (path, got.shape, want.shape)
+    if np.issubdtype(want.dtype, np.floating):
+        np.testing.assert_allclose(got, want, atol=atol, rtol=rtol, err_msg=path)
+    else:
+        np.testing.assert_array_equal(got.astype(want.dtype), want, err_msg=path)
+
+
+def ms_to_torch(ms_j):
+    return interop.map_state_from_numpy(jax.tree.map(np.asarray, ms_j))
+
+
+def traj_to_torch(traj_j):
+    return interop.trajectory_from_numpy(jax.tree.map(np.asarray, traj_j))

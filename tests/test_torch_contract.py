@@ -37,7 +37,13 @@ SLICE_MODULES = [
     "hyslam_tpu_torch.ops.stereo", "hyslam_tpu_torch.ops.pose_opt_cuda",
     "hyslam_tpu_torch.solver.robust", "hyslam_tpu_torch.solver.residuals",
     "hyslam_tpu_torch.solver.pose_opt", "hyslam_tpu_torch.slam.frontend",
-    "hyslam_tpu_torch.utils.synth",
+    "hyslam_tpu_torch.utils.synth", "hyslam_tpu_torch.ops.indexing",
+    "hyslam_tpu_torch.geometry.triangulation", "hyslam_tpu_torch.core.mapstate",
+    "hyslam_tpu_torch.core.trajectory", "hyslam_tpu_torch.core.sensordata",
+    "hyslam_tpu_torch.solver.ba", "hyslam_tpu_torch.slam.keyframe_policy",
+    "hyslam_tpu_torch.slam.tracking_params", "hyslam_tpu_torch.slam.initializers",
+    "hyslam_tpu_torch.slam.localmap", "hyslam_tpu_torch.slam.strategies",
+    "hyslam_tpu_torch.slam.mapper", "hyslam_tpu_torch.slam.tracker",
 ]
 
 
@@ -195,3 +201,116 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+def _jax_tracker_state():
+    """A JAX-package map state and trajectory with keyframes, landmarks,
+    culled flags and the high descriptor bit set."""
+    from hyslam_tpu.core import mapstate as JM
+    from hyslam_tpu.core import trajectory as JT
+    from hyslam_tpu.geometry import se3 as jse3
+
+    rng = np.random.default_rng(11)
+    F = 16
+    desc = rng.integers(0, 2**32, (F, 8), dtype=np.uint32)
+    desc[0] = 0xFFFFFFFF
+    from hyslam_tpu.core.frame import FrameFeatures as JFF
+    f = JFF(uv=jnp.asarray(rng.uniform(0, 300, (F, 2)).astype(np.float32)),
+            ur=jnp.full((F,), 5.0), depth=jnp.asarray(rng.uniform(1, 9, F).astype(np.float32)),
+            level=jnp.zeros(F, jnp.int32), angle=jnp.zeros(F), desc=jnp.asarray(desc),
+            valid=jnp.ones(F, bool))
+    ms = JM.empty_map_state(JM.MapCaps(K=4, L=32, F=F, O=4))
+    ms, k = JM.add_keyframe(ms, f, jse3.identity(), 0.5, 3, 0, jnp.full(F, -1, jnp.int32),
+                            origin=True)
+    ms, _ = JM.add_landmarks(ms, jnp.asarray(rng.normal(0, 5, (F, 3)).astype(np.float32)),
+                             f.desc, k, jnp.arange(F, dtype=jnp.int32), jnp.arange(F) < 9)
+    ms = JM.update_landmark_stats(JM.refresh_covisibility(ms))
+    ms = JM.set_landmarks_bad(ms, jnp.arange(32) == 2)
+    traj = JT.append(JT.empty_trajectory(8), 0.5, jse3.exp(jnp.full(6, 0.1)), 0,
+                     jse3.identity(), True)
+    return ms, traj
+
+
+def test_interop_roundtrips_map_state_and_trajectory():
+    """A JAX-package MapState and Trajectory to the port and back: every
+    field unchanged, bit for bit, descriptors as uint32 again."""
+    from port_helpers import tree_np
+
+    ms_j, traj_j = _jax_tracker_state()
+    ms_t = interop.map_state_from_numpy(jax.tree.map(np.asarray, ms_j))
+    assert ms_t.kf.desc.dtype == torch.int32 and ms_t.lm.valid.dtype == torch.bool
+    back = interop.map_state_to_numpy(ms_t)
+    want = tree_np(ms_j)
+    for part in ("kf", "lm", "maps"):
+        for k, v in want[part].items():
+            assert back[part][k].dtype == v.dtype, (part, k)
+            assert back[part][k].tobytes() == v.tobytes(), (part, k)
+    for k in ("covis", "next_kf", "next_lm"):
+        assert back[k].tobytes() == want[k].tobytes()
+    # and back in from the port's own dict
+    again = interop.map_state_to_numpy(interop.map_state_from_numpy(back))
+    assert tree_np(again)["lm"]["desc"].tobytes() == want["lm"]["desc"].tobytes()
+    traj_t = interop.trajectory_from_numpy(jax.tree.map(np.asarray, traj_j))
+    tb = interop.trajectory_to_numpy(traj_t)
+    for k, v in tree_np(traj_j).items():
+        assert tb[k].dtype == v.dtype and tb[k].tobytes() == v.tobytes(), k
+
+
+def test_unported_paths_raise():
+    """Every state, flag and solver path that is not ported raises
+    NotImplementedError and names its ROADMAP step; none falls back."""
+    from hyslam_tpu_torch.core.mapstate import MapCaps
+    from hyslam_tpu_torch.core.sensordata import empty_sensor_arena
+    from hyslam_tpu_torch.slam import mapper, tracker
+    from hyslam_tpu_torch.slam.tracking_params import NormalStateParams, TrackingParams
+    from hyslam_tpu_torch.solver import ba
+
+    caps = MapCaps(K=4, L=64, F=16, O=4)
+    with pytest.raises(NotImplementedError, match="step 13"):
+        tracker.Tracker(cam=SMALL_CAM, caps=caps, is_mono=True)
+    with pytest.raises(NotImplementedError, match="step 16"):
+        tracker.Tracker(cam=SMALL_CAM, caps=caps, reset_interval=15)
+    with pytest.raises(NotImplementedError, match="step 16"):
+        tracker.Tracker(cam=SMALL_CAM, caps=caps, params=TrackingParams(
+            normal=NormalStateParams(reset_interval=15)))
+    tr = tracker.Tracker(cam=SMALL_CAM, caps=caps)
+    from hyslam_tpu_torch.core.frame import empty_features
+    with pytest.raises(NotImplementedError, match="step 16"):
+        tr.track(empty_features(16), 0.0, 0, sensor_data=object())
+    for state, step in ((tracker.State.REINITIALIZE, "step 16"),
+                        (tracker.State.RELOCALIZE, "step 14")):
+        tr.state = state
+        with pytest.raises(NotImplementedError, match=step):
+            tr.track(empty_features(16), 0.0, 0)
+    with pytest.raises(NotImplementedError, match="step 16"):
+        tr._lose_tracking()
+    assert tr.state == tracker.State.REINITIALIZE
+
+    K, L, O = 3, 4, 2
+    prob = ba.BAProblem(
+        kf_Tcw=torch.eye(4).repeat(K, 1, 1), kf_fixed=torch.zeros(K, dtype=torch.bool),
+        cams=ba.CamArrays(*(torch.ones(K) for _ in range(5))), lm_pos=torch.ones(L, 3),
+        lm_valid=torch.ones(L, dtype=torch.bool),
+        obs=ba.BAObservations(torch.zeros(L, O, dtype=torch.int32), torch.zeros(L, O, 2),
+                              torch.zeros(L, O), torch.ones(L, O),
+                              torch.zeros(L, O, dtype=torch.bool),
+                              torch.ones(L, O, dtype=torch.bool)))
+    with pytest.raises(NotImplementedError, match="step 15"):
+        ba.bundle_adjustment(prob, solver="cg")
+    big = prob._replace(kf_Tcw=torch.eye(4).repeat(512, 1, 1))
+    with pytest.raises(NotImplementedError, match="step 15"):
+        ba.bundle_adjustment(big, solver="auto")
+    with pytest.raises(NotImplementedError, match="step 16"):
+        ba.bundle_adjustment(prob._replace(priors=object()))
+
+    from hyslam_tpu_torch.core.mapstate import empty_map_state
+    ms = empty_map_state(caps)
+    sensors = empty_sensor_arena(4)
+    sensors = sensors._replace(gps_valid=torch.tensor([True, False, False, False]))
+    m = mapper.Mapper(SMALL_CAM)
+    m.kf_count = 3
+    with pytest.raises(NotImplementedError, match="step 16"):
+        m.integrate_keyframe(ms, 0, sensors=sensors)
+    ms = ms._replace(maps=ms.maps._replace(registered=torch.ones_like(ms.maps.registered)))
+    with pytest.raises(NotImplementedError, match="step 16"):
+        m.integrate_keyframe(ms, 0)
