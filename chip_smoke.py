@@ -11,13 +11,22 @@ It exits non-zero, printing no result, where CUDA is not available. Phases:
 0. The card: its name and power limit, and the build of the port's CUDA
    kernels from ``hyslam_tpu_torch/csrc`` with nvcc for sm_90a.
 1. Kernel K1 (the whole pose-only LM schedule, ``csrc/pose_opt.cu``)
-   against its plain PyTorch version on the card, at N = 1024 observations,
+   against its plain PyTorch versions on the card, at N = 1024 observations,
    on the three problems of tests/test_pose_opt_pallas.py (stereo, 25%
-   outliers, mono) with that file's bounds; then timed with CUDA events,
-   100 calls a run: the kernel's wrapper alone, the solver entry point that
-   calls it, and the plain version. Beyond that file's bounds the kernel's
-   pose must lie within 1e-4 of the plain one, entry by entry, with at most
-   one inlier of difference.
+   outliers, mono) with that file's bounds: against the two-pass solver
+   ``pose_optimization`` and against ``pose_optimization_fused_schedule``,
+   the plain form of the kernel's own one-pass schedule. Beyond that file's
+   bounds the kernel's pose must lie within 1e-4 of each, entry by entry,
+   with at most one inlier of difference; its chi2 output must be the plain
+   chi2 at its pose (relative 1e-4 plus 1e-3, the 1e9 markers equal) and
+   agree with its inlier mask and count. Then timed with CUDA events, 100
+   calls a run, in turns: the kernel's wrapper alone, the solver entry
+   point that calls it (which must stay within 0.03 ms of the wrapper and
+   put exactly one row, the kernel, on the device), and the plain version;
+   the wrapper at the schedules 0x0, 1x1 and 4x10 (rounds x iterations),
+   which read the fixed part of a call and the time an iteration adds
+   apart; and 4x10 at B = 8 and B = 132 independent problems. The bound
+   beside these is computed from this run's shapes and counts.
 2. The slice at the reference's SLAM-camera operating point: a rendered
    1280x720 stereo sequence of 30 frames (4000 points, fx 700, bf 84, 0.08 m
    forward per frame), ORB with 1000 features over 8 levels, capacity 1024,
@@ -46,12 +55,17 @@ It exits non-zero, printing no result, where CUDA is not available. Phases:
    initialization) that keeps at least 3/4 of what initialization seeded;
    K1 launched exactly 2 times a
    POSTINIT/NORMAL frame plus once more where the motion model failed; the
-   local-map pose problems of 3 NORMAL frames re-solved by the plain solver
-   on the card within max|dT| 1e-3 and one inlier of the kernel. Then the
-   median ms per frame with and without a keyframe, per mapper call, and
-   the peak device memory.
+   local-map pose problems of 3 NORMAL frames and of the frame with the
+   worst error re-solved by the plain solver on the card within max|dT|
+   1e-3 and one inlier of the kernel. Then the median ms per frame with and
+   without a keyframe, per mapper call, and the peak device memory. Last,
+   the whole sequence again with the plain solver in the kernel's place
+   (no K1 launch): its ATE and worst frame are printed beside the kernel
+   run's, with how far the two trajectories come apart.
 
-Prints the card line, one JSON line of kernel results, and last
+Prints the card line, one JSON line of kernel results (with the kernel's
+time: its bound and what sets it, its fixed part and its time an
+iteration), and last
 ``{"ok": true, "device": {...}}``. Any failure raises.
 """
 
@@ -91,10 +105,19 @@ MAX_T = 0.08
 MAX_D_ROT, MAX_D_T, MAX_D_INLIERS = 0.05, 0.01, 10
 MAX_ABS_DT_PROBLEM, MAX_D_INLIERS_PROBLEM = 1e-4, 1
 MAX_ABS_DT_SLICE = 1e-3
+# the kernel's chi2 output against the plain evaluation at the same pose:
+# relative 1e-4, plus 1e-3 absolute because a residual is a difference of
+# pixel coordinates of a few hundred, whose float32 rounding (fused
+# multiply-adds in the kernel, none in the plain version) is absolute
+CHI2_RTOL, CHI2_ATOL = 1e-4, 1e-3
+# the solver entry point against the wrapper it calls, ms per call
+MAX_FAST_OVER_KERNEL_MS = 0.03
 # phase 4: the tracker against the rendered truth, and what the mapper must
-# have done. Readings (PERF.md): ATE 0.0237 m, worst frame 0.0617 m, 785 live
-# landmarks of 854 seeded at the end. The ATE bound is 1.5x its reading; the
-# per-frame bound stays phase 2's 0.08 m, under 1.5x the worst frame.
+# have done. Readings when the bounds were set (PERF.md): ATE 0.0237 m, worst
+# frame 0.0617 m, 785 live landmarks of 854 seeded at the end. The ATE bound
+# is 1.5x its reading; the per-frame bound is phase 2's 0.08 m. A change of
+# summation order in the solver moves the worst frame between 0.04 and
+# 0.074 m (PERF.md), so phase 4 also prints the run with the plain solver.
 MAX_T_TRACK, MAX_ATE = 0.08, 0.035
 MIN_KEYFRAMES = 5
 MIN_LIVE_OF_SEEDED = 0.75     # live landmarks at the end / seeded at init
@@ -137,30 +160,52 @@ def phase0():
             log(f"  ptxas: {line.strip()}")
 
 
-def pose_problem(seed: int, outlier_frac: float, stereo_frac: float, n: int):
-    """tests/test_pose_opt_pallas.py:problem, in numpy, at n observations."""
-    from hyslam_tpu_torch.geometry.camera import Camera
-    from hyslam_tpu_torch.utils import synth
+def k1_bound(n_obs: int, n_valid: int, n_inliers: int, n_rounds: int, iters: int):
+    """The least time (ms) one H100 could take for one K1 problem, and what
+    sets it. Bytes: every input read once, every output written once, over
+    3.35 TB/s. Operations, counted from csrc/pose_opt.cu with a multiply-add
+    as two: FLOP_SYSTEM an active observation for a pass that sums H, g and
+    the cost (40 for the residual and chi2, 31 for the weight and the three
+    Jacobian rows, 112 + 36 + 7 for the sums with the identically zero
+    products left out), FLOP_RESIDUAL an observation for a reclassification
+    or final pass, FLOP_STEP for a damped 6x6 Cholesky solve, SE3 exp and
+    compose; over 67 TFLOP/s float32. A schedule makes n_rounds * (iters + 1)
+    system passes (round 0 over the valid observations, later rounds over
+    about the final inliers), n_rounds + 1 residual passes over all n_obs,
+    and n_rounds * iters steps."""
+    FLOP_SYSTEM, FLOP_RESIDUAL, FLOP_STEP = 226, 40, 330
+    read = 64 + n_obs * (12 + 8 + 4 + 4 + 1 + 1)
+    written = 64 + n_obs * (1 + 4) + 4
+    active = (n_valid + (n_rounds - 1) * n_inliers) if n_rounds else 0
+    flop = (active * (iters + 1) * FLOP_SYSTEM + (n_rounds + 1) * n_obs * FLOP_RESIDUAL
+            + n_rounds * iters * FLOP_STEP)
+    by_bytes, by_ops = 1e3 * (read + written) / 3.35e12, 1e3 * flop / 67e12
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "bytes": read + written, "flop": flop}
 
-    cam = Camera(fx=450.0, fy=450.0, cx=320.0, cy=240.0, width=640,
-                 height=480, bf=45.0)      # tests/helpers.py DEFAULT_CAM
-    rng = np.random.default_rng(seed)
-    pts = synth.make_world(rng, n)
-    T_true = synth.make_trajectory(3)[2]
-    uv, ur, vis, stereo = synth.observe(cam, T_true, pts, noise=0.3, rng=rng,
-                                        stereo_frac=stereo_frac)
-    n_out = int(outlier_frac * n)
-    out_idx = rng.choice(n, n_out, replace=False)
-    uv[out_idx] += rng.uniform(30, 120, (n_out, 2)) * rng.choice([-1, 1], (n_out, 2))
-    T0 = synth.perturb_pose(rng, T_true, rot=0.03, trans=0.15)
-    args = (T0, pts, uv, ur, np.ones(n, np.float32), vis, stereo & vis)
-    return cam, T_true, args
+
+def device_rows(fn, n: int = 1) -> list[tuple[str, float]]:
+    """(name, us on the device) of every row that n calls of fn put on the
+    device (kernels, copies, sets), by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
 
 
 def phase1(dev):
     from hyslam_tpu_torch.ops.pose_opt_cuda import pose_optimization_cuda
-    from hyslam_tpu_torch.solver.pose_opt import pose_optimization, pose_optimization_fast
-    from hyslam_tpu_torch.utils.synth import pose_error
+    from hyslam_tpu_torch.solver.pose_opt import (
+        _final_chi2, pose_optimization, pose_optimization_fast,
+        pose_optimization_fused_schedule)
+    from hyslam_tpu_torch.utils.synth import pose_error, pose_problem
 
     cases = {  # outlier_frac, stereo_frac, rot bound (deg), t bound vs truth
         "stereo": (0.0, 1.0, 0.1, 0.01),
@@ -173,33 +218,53 @@ def phase1(dev):
         cam, T_true, args = pose_problem(i, out_frac, st_frac, CAPACITY)
         targs = [torch.from_numpy(np.array(a)).to(dev) for a in args]
         k = pose_optimization_fast(cam, *targs)
-        p = pose_optimization(cam, *targs)
-        Tk, Tp = k.Tcw.cpu().numpy(), p.Tcw.cpu().numpy()
+        Tk = k.Tcw.cpu().numpy()
         if not (np.isfinite(Tk).all() and Tk.shape == (4, 4)):
             raise AssertionError(f"phase 1 {name}: kernel pose not finite: {Tk}")
         rot, t = pose_error(Tk, T_true)
-        d_rot, d_t = pose_error(Tk, Tp)
-        d_inl = abs(int(k.num_inliers) - int(p.num_inliers))
-        err = float(np.abs(Tk - Tp).max())
-        max_abs_err = max(max_abs_err, err)
-        log(f"phase 1 {name}: truth rot {rot:.5f} deg t {t:.6f} | vs plain "
-            f"d_rot {d_rot:.6f} d_t {d_t:.7f} inliers {int(k.num_inliers)} vs "
-            f"{int(p.num_inliers)} max|dT| {err:.3e}")
         if not (rot < rot_b and t < t_b):
             raise AssertionError(f"phase 1 {name}: kernel off the truth ({rot}, {t})")
-        if not (d_rot < MAX_D_ROT and d_t < MAX_D_T and d_inl <= MAX_D_INLIERS
-                and err < MAX_ABS_DT_PROBLEM and d_inl <= MAX_D_INLIERS_PROBLEM):
-            raise AssertionError(f"phase 1 {name}: kernel and plain disagree "
-                                 f"(d_rot {d_rot}, d_t {d_t}, max|dT| {err}, "
-                                 f"inliers {d_inl} apart)")
+        # against the two-pass plain solver and the plain form of its own
+        # one-pass schedule
+        fused, accepts = pose_optimization_fused_schedule(cam, *targs)
+        for other, p in (("plain", pose_optimization(cam, *targs)), ("fused plain", fused)):
+            Tp = p.Tcw.cpu().numpy()
+            d_rot, d_t = pose_error(Tk, Tp)
+            d_inl = abs(int(k.num_inliers) - int(p.num_inliers))
+            err = float(np.abs(Tk - Tp).max())
+            max_abs_err = max(max_abs_err, err)
+            log(f"phase 1 {name}: truth rot {rot:.5f} deg t {t:.6f} | vs {other} "
+                f"d_rot {d_rot:.6f} d_t {d_t:.7f} inliers {int(k.num_inliers)} vs "
+                f"{int(p.num_inliers)} max|dT| {err:.3e}")
+            if not (d_rot < MAX_D_ROT and d_t < MAX_D_T and d_inl <= MAX_D_INLIERS
+                    and err < MAX_ABS_DT_PROBLEM and d_inl <= MAX_D_INLIERS_PROBLEM):
+                raise AssertionError(f"phase 1 {name}: kernel and {other} disagree "
+                                     f"(d_rot {d_rot}, d_t {d_t}, max|dT| {err}, "
+                                     f"inliers {d_inl} apart)")
+        log(f"phase 1 {name}: fused plain schedule accepted {int(accepts.sum())} of "
+            f"{accepts.numel()} steps")
+        # the kernel's chi2 against the plain evaluation at the kernel's pose
+        _, X, uv, ur, inv_s2, valid, stereo = targs
+        want = _final_chi2(cam, k.Tcw, X, uv, ur, inv_s2, stereo)
+        marker = want == 1e9
+        diff = (k.chi2 - want).abs()
+        chi2_ok = (torch.equal(k.chi2 == 1e9, marker)
+                   and bool((diff <= CHI2_RTOL * want.abs() + CHI2_ATOL)[~marker].all()))
+        rel = float((diff / want.abs().clamp_min(1.0))[~marker].max())
+        log(f"phase 1 {name}: kernel chi2 vs plain at the kernel's pose: max "
+            f"|d| / max(chi2, 1) {rel:.3e}, {int(marker.sum())} behind-camera markers")
+        if not (chi2_ok and k.chi2.shape == want.shape
+                and torch.equal(k.inliers, valid & (k.chi2 <= torch.where(stereo, 7.815, 5.991)))
+                and int(k.num_inliers) == int(k.inliers.sum())):
+            raise AssertionError(f"phase 1 {name}: the kernel's chi2, inlier mask and "
+                                 "count do not agree")
         if name == "stereo":
-            timed = (cam, targs)
+            timed = (cam, targs, int(valid.sum()), int(k.num_inliers), k.Tcw)
 
     # kernel: the wrapper alone, on inputs already in its layout; fast: the
-    # solver entry point (layout conversion + kernel + final chi2), whose
-    # outputs are the plain version's
-    cam, targs = timed
-    kargs = [x.to(torch.float32)[None].contiguous() for x in targs]
+    # solver entry point, which hands the wrapper views of its arguments
+    cam, targs, n_valid, n_inl, T_one = timed
+    kargs = [x[None] for x in targs]
     fns = {
         "plain": lambda: pose_optimization(cam, *targs),
         "kernel": lambda: pose_optimization_cuda(cam, *kargs),
@@ -214,7 +279,51 @@ def phase1(dev):
         runs[which].append(cuda_ms(fns[which], N_TIMED))
     log(f"phase 1 timing, N={CAPACITY}, {N_TIMED} calls per run, ms/call: "
         + ", ".join(f"{k} {v}" for k, v in runs.items()))
-    return max_abs_err, statistics.mean(runs["kernel"]), statistics.mean(runs["plain"])
+    k_ms, fast_ms = statistics.mean(runs["kernel"]), statistics.mean(runs["fast"])
+    rows = [name for name, _ in device_rows(fns["fast"])]
+    log(f"phase 1: one pose_optimization_fast call put on the device: {rows}")
+    if len(rows) != 1 or abs(fast_ms - k_ms) >= MAX_FAST_OVER_KERNEL_MS:
+        raise AssertionError(f"phase 1: fast {fast_ms} ms vs kernel {k_ms} ms, "
+                             f"{len(rows)} device rows a call")
+
+    # the chain: the fixed part of a problem (load, final pass) and the time
+    # an iteration adds, from three schedules in turns. Read from the
+    # kernel's own duration on the device (the profiler's rows): between
+    # CUDA events a call shorter than the host's pace of launching shows
+    # that pace, which is printed beside it.
+    sched = {s: ([], []) for s in ((0, 0), (1, 1), (4, 10))}
+    for s in (*sched, *reversed(sched)):
+        fn = lambda: pose_optimization_cuda(cam, *kargs, n_rounds=s[0], iters_per_round=s[1])
+        fn()
+        sched[s][0].append(cuda_ms(fn, N_TIMED))
+        us = [us for _, us in device_rows(fn, N_TIMED)]     # the profiler may drop a row
+        if not 0.9 * N_TIMED <= len(us) <= N_TIMED:
+            raise AssertionError(f"phase 1: {len(us)} device rows for {N_TIMED} launches")
+        sched[s][1].append(statistics.mean(us) / 1e3)
+    fixed_ms = statistics.mean(sched[(0, 0)][1])
+    per_iter_us = 1e3 * (statistics.mean(sched[(4, 10)][1]) - fixed_ms) / 40
+    log("phase 1 schedules at B=1 (rounds x iterations), ms between events a call: "
+        + ", ".join(f"{r}x{i} {v[0]}" for (r, i), v in sched.items()))
+    log("phase 1 schedules at B=1, ms on the device a call: "
+        + ", ".join(f"{r}x{i} {v[1]}" for (r, i), v in sched.items())
+        + f" -> fixed {fixed_ms:.5f} ms, {per_iter_us:.3f} us an iteration")
+    for B in (8, 132):
+        rows = [pose_problem(seed, 0.0, 1.0, CAPACITY)[2] for seed in range(B)]
+        bargs = [torch.from_numpy(np.stack([np.asarray(r[j]) for r in rows])).to(dev)
+                 for j in range(7)]
+        fn = lambda: pose_optimization_cuda(cam, *bargs)
+        T, _, ninl, _ = fn()
+        # problem 0 is the timed one: in a batch it must give the same bits
+        if not (torch.isfinite(T).all() and torch.equal(T[0], T_one)
+                and int(ninl.min()) >= MIN_INLIERS):
+            raise AssertionError(f"phase 1 B={B}: batched problems failed")
+        log(f"phase 1 B={B} independent problems, 4x10, ms/call: "
+            f"{[cuda_ms(fn, N_TIMED) for _ in range(2)]}")
+    bound = k1_bound(CAPACITY, n_valid, n_inl, 4, 10)
+    log(f"phase 1 bound for one 4x10 problem: {bound}")
+    return {"max_abs_err": max_abs_err, "ms": k_ms, "plain_ms": statistics.mean(runs["plain"]),
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "fixed_ms": fixed_ms, "per_iter_us": per_iter_us, "library_ms": None}
 
 
 def profile_frames(track, poses, dev, frame_ms: float, n: int = 5) -> None:
@@ -416,8 +525,26 @@ def phase4(dev, cam, cfg, poses, pairs):
     from hyslam_tpu_torch.ops.pose_opt_cuda import pose_optimization_cuda
     from hyslam_tpu_torch.slam.frontend import match_stereo_pair
     from hyslam_tpu_torch.slam.tracker import State, Tracker
-    from hyslam_tpu_torch.solver.pose_opt import pose_optimization
+    from hyslam_tpu_torch.solver.pose_opt import pose_optimization, pose_optimization_fast
     from hyslam_tpu_torch.utils import synth
+
+    def track_all(tracker):
+        """Every frame through extraction, stereo matching and track():
+        ([(ms, made a keyframe)], {frame: its NORMAL-state result})."""
+        frame_ms, normal = [], {}
+        for i in range(len(poses)):
+            t = time.perf_counter()
+            fl = match_stereo_pair(cam, extract_atlas_batch(pairs[i], cfg, CAPACITY), pairs[i])
+            tel = tracker.track(fl, FRAME_DT * i, i)
+            torch.cuda.synchronize()
+            frame_ms.append((1e3 * (time.perf_counter() - t), tel.kf_inserted >= 0))
+            if tel.state == "NORMAL":
+                normal[i] = (tracker.last_result, tel.n_inliers)
+        return frame_ms, normal
+
+    def errors(tracker):
+        est = tracker.traj.Tcw[:len(poses)].cpu().numpy()
+        return est, [synth.pose_error(est[i], poses[i]) for i in range(len(poses))]
 
     tracker = Tracker(cam=cam, caps=MapCaps(*TRACK_CAPS), device=dev)
     mapper_ms = []
@@ -438,15 +565,7 @@ def phase4(dev, cam, cfg, poses, pairs):
 
     # the main path: counts to 0, track every frame, read the counts
     pose_optimization_cuda.launches = 0
-    frame_ms, compare = [], []
-    for i in range(n):
-        t = time.perf_counter()
-        fl = match_stereo_pair(cam, extract_atlas_batch(pairs[i], cfg, CAPACITY), pairs[i])
-        tel = tracker.track(fl, FRAME_DT * i, i)
-        torch.cuda.synchronize()
-        frame_ms.append((1e3 * (time.perf_counter() - t), tel.kf_inserted >= 0))
-        if tel.state == "NORMAL" and len(compare) < N_COMPARE:
-            compare.append((i, tracker.last_result, tel.n_inliers))
+    frame_ms, normal = track_all(tracker)
     launches = pose_optimization_cuda.launches
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
 
@@ -454,11 +573,10 @@ def phase4(dev, cam, cfg, poses, pairs):
     n_min = tracker.params.motion.n_min_matches
     expected = sum(2 + (t.n_motion < n_min) for t in tels
                    if t.state in ("POSTINIT", "NORMAL"))
-    est = tracker.traj.Tcw[:n].cpu().numpy()
-    errs = []
+    est, rot_t = errors(tracker)
+    errs = [tr for _, tr in rot_t]
     for i, t in enumerate(tels):
-        rot, tr = synth.pose_error(est[i], poses[i])
-        errs.append(tr)
+        rot, tr = rot_t[i]
         log(f"  frame {i}: {t.state} motion {t.n_motion} inliers {t.n_inliers} "
             f"local {t.n_local} kf {t.kf_inserted} seeded {t.n_seeded} "
             f"rot {rot:.5f} deg t {tr:.6f} m {t.mapper_stats or ''}")
@@ -484,14 +602,42 @@ def phase4(dev, cam, cfg, poses, pairs):
         "peak_device_mb": peak_mb,
     }))
 
-    # the tracker's own local-map pose problems through the plain solver
+    # the tracker's own local-map pose problems through the plain solver:
+    # the first N_COMPARE NORMAL frames and the frame with the worst error
     compared = []
-    for i, nf, n_inl in compare:
+    for i in dict.fromkeys([*sorted(normal)[:N_COMPARE], *([worst] if worst in normal else [])]):
+        nf, n_inl = normal[i]
         p = pose_optimization(*nf.problem)
         err = float((nf.Tcw - p.Tcw).abs().max())
         compared.append((i, err, abs(n_inl - int(p.num_inliers))))
         log(f"phase 4 frame {i}: kernel vs plain max|dT| {err:.3e} inliers "
             f"{n_inl} vs {int(p.num_inliers)}")
+
+    # The same sequence with the plain solver in the kernel's place. The
+    # mapper feeds every pose back into the map, so late digits of a solve
+    # grow along the sequence: this run says how far two correct solvers
+    # come apart, beside the kernel's distance from the truth.
+    from hyslam_tpu_torch.slam import strategies
+
+    plain_tracker = Tracker(cam=cam, caps=MapCaps(*TRACK_CAPS), device=dev)
+    pose_optimization_cuda.launches = 0
+    strategies.pose_optimization_fast = pose_optimization
+    try:
+        track_all(plain_tracker)
+    finally:
+        strategies.pose_optimization_fast = pose_optimization_fast
+    plain_launches = pose_optimization_cuda.launches
+    est_p, rot_t_p = errors(plain_tracker)
+    errs_p = [tr for _, tr in rot_t_p]
+    ate_p = float(np.sqrt(np.mean(np.square(errs_p))))
+    worst_p = int(np.argmax(errs_p))
+    apart = np.linalg.norm(est[:, :3, 3] - est_p[:, :3, 3], axis=-1)
+    first_apart = int(np.argmax(apart > 1e-3)) if (apart > 1e-3).any() else -1
+    log(f"phase 4 with the plain solver in K1's place: ATE {ate_p:.6f} m, worst frame "
+        f"{worst_p} at {errs_p[worst_p]:.6f} m, frame {worst} at {errs_p[worst]:.6f} m; "
+        f"kernel and plain trajectories at most {apart.max():.6f} m apart (frame "
+        f"{int(apart.argmax())}), first over 0.001 m at frame {first_apart}; "
+        f"K1 launches {plain_launches}")
 
     gates = {
         "states INITIALIZE -> POSTINIT -> NORMAL, every frame tracked":
@@ -511,10 +657,13 @@ def phase4(dev, cam, cfg, poses, pairs):
             all(np.isfinite(st.get("ba_cost", float("nan"))) for st in kf_stats[3:]),
         f"K1 launches {launches} == 2 a tracked frame + motion-model failures {expected}":
             launches == expected,
-        f"{len(compared)} NORMAL frames: kernel and plain solver within "
-        f"{MAX_ABS_DT_SLICE} and {MAX_D_INLIERS_PROBLEM} inlier":
-            len(compared) == N_COMPARE and all(
+        f"{len(compared)} NORMAL frames, the worst among them: kernel and plain solver "
+        f"within {MAX_ABS_DT_SLICE} and {MAX_D_INLIERS_PROBLEM} inlier":
+            len(compared) >= N_COMPARE and worst in normal and all(
                 e < MAX_ABS_DT_SLICE and d <= MAX_D_INLIERS_PROBLEM for _, e, d in compared),
+        "the run with the plain solver: every frame tracked, finite poses, no K1 launch":
+            plain_tracker.state == State.NORMAL and len(plain_tracker.telemetry) == n
+            and bool(np.isfinite(est_p).all()) and plain_launches == 0,
     }
     failed = [g for g, ok in gates.items() if not ok]
     if failed:
@@ -534,7 +683,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     phase0()
-    max_abs_err, k_ms, p_ms = phase1(dev)
+    k1 = phase1(dev)
     cam, cfg = camera_and_config()
     poses, pairs = render_sequence(cam, dev, N_TRACK)
     launches = phase2(dev, cam, cfg, poses, pairs)
@@ -545,9 +694,7 @@ def main() -> int:
         "source": "hyslam_tpu_torch/csrc/pose_opt.cu",
         "replaces": "hyslam_tpu/ops/pose_opt_pallas.py:331",
         "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
+        **k1,
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

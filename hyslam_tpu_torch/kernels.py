@@ -36,9 +36,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # T0 X uv ur is2 valid stereo | B N | fx fy cx cy bf | rounds iters |
-    # Tout inl ninl | stream
+    # Tout inl ninl chi2 | stream
     "hyslam_pose_opt": ([_P] * 7 + [_I, _I] + [_F] * 5 + [_I, _I]
-                        + [_P] * 3 + [_P], _I),
+                        + [_P] * 4 + [_P], _I),
     "hyslam_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -25,6 +25,7 @@ from hyslam_tpu_torch.core import trajectory as TJ
 from hyslam_tpu_torch.core.frame import FrameFeatures
 from hyslam_tpu_torch.core.mapstate import MapCaps, MapState, empty_map_state
 from hyslam_tpu_torch.core.sensordata import empty_sensor_arena
+from hyslam_tpu_torch.device import default_device
 from hyslam_tpu_torch.geometry import se3
 from hyslam_tpu_torch.geometry.camera import Camera
 from hyslam_tpu_torch.slam.initializers import stereo_initialize
@@ -87,7 +88,7 @@ class Tracker:
     n_levels: int = 8             # pyramid model of this camera's extractor
     scale_factor: float = 1.2
     params: TrackingParams = field(default_factory=TrackingParams)
-    device: object = None         # where the map state lives (default CPU)
+    device: object = None         # where the map state lives (default: the card)
 
     def __post_init__(self):
         if self.is_mono:
@@ -96,7 +97,8 @@ class Tracker:
         if self.reset_interval or self.params.normal.reset_interval > 0:
             raise NotImplementedError(
                 "forced-loss fault injection enters REINITIALIZE, ROADMAP step 16")
-        self.device = torch.device(self.device if self.device is not None else "cpu")
+        self.device = (torch.device(self.device) if self.device is not None
+                       else default_device())
         self.ms: MapState = empty_map_state(self.caps, device=self.device)
         self.sensors = empty_sensor_arena(self.caps.K, device=self.device)
         self.traj = TJ.empty_trajectory(device=self.device)

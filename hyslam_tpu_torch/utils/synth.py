@@ -119,6 +119,26 @@ def perturb_pose(rng, T, rot=0.02, trans=0.1):
     return (se3_exp(xi) @ np.asarray(T, np.float64)).astype(np.float32)
 
 
+def pose_problem(seed: int, outlier_frac: float, stereo_frac: float, n: int):
+    """tests/test_pose_opt_pallas.py:problem at n observations, with
+    tests/helpers.py's DEFAULT_CAM: (cam, T_true, the pose solver's seven
+    arrays T0, X, uv, ur, inv_sigma2, valid, stereo)."""
+    from hyslam_tpu_torch.geometry.camera import Camera
+
+    cam = Camera(fx=450.0, fy=450.0, cx=320.0, cy=240.0, width=640,
+                 height=480, bf=45.0)
+    rng = np.random.default_rng(seed)
+    pts = make_world(rng, n)
+    T_true = make_trajectory(3)[2]
+    uv, ur, vis, stereo = observe(cam, T_true, pts, noise=0.3, rng=rng,
+                                  stereo_frac=stereo_frac)
+    n_out = int(outlier_frac * n)
+    out_idx = rng.choice(n, n_out, replace=False)
+    uv[out_idx] += rng.uniform(30, 120, (n_out, 2)) * rng.choice([-1, 1], (n_out, 2))
+    T0 = perturb_pose(rng, T_true, rot=0.03, trans=0.15)
+    return cam, T_true, (T0, pts, uv, ur, np.ones(n, np.float32), vis, stereo & vis)
+
+
 def gaussian_blur(img: np.ndarray, ksize: int = 7, sigma: float = 2.0):
     """Separable Gaussian blur with edge-replicated borders, float32, in the
     JAX package's accumulation order (ops/pyramid.py:gaussian_blur)."""

@@ -142,8 +142,9 @@ def test_fast_solver_on_cpu_builds_and_launches_nothing(monkeypatch):
 
 def test_cuda_wrapper_raises_on_cpu_tensors():
     B, N = 1, 8
-    args = [torch.zeros(B, 4, 4), torch.zeros(B, N, 3), torch.zeros(B, N, 2)] + [
-        torch.zeros(B, N) for _ in range(4)]
+    args = [torch.zeros(B, 4, 4), torch.zeros(B, N, 3), torch.zeros(B, N, 2),
+            torch.zeros(B, N), torch.zeros(B, N),
+            torch.zeros(B, N, dtype=torch.bool), torch.zeros(B, N, dtype=torch.bool)]
     before = pose_optimization_cuda.launches
     with pytest.raises(ValueError, match="CUDA"):
         pose_optimization_cuda(SMALL_CAM, *args)
@@ -151,6 +152,47 @@ def test_cuda_wrapper_raises_on_cpu_tensors():
         pose_optimization_cuda(SMALL_CAM, torch.zeros(1, 4, 4), torch.zeros(1, 1025, 3),
                                *args[2:])
     assert pose_optimization_cuda.launches == before
+
+
+@pytest.mark.parametrize("mask", ["valid", "stereo"])
+def test_cuda_wrapper_wants_bool_masks(mask, monkeypatch):
+    """The kernel reads the masks as bytes of torch.bool storage: a 0/1
+    float mask is refused before anything is built or launched."""
+    def no_build(*a, **k):
+        raise AssertionError("a refused call reached the kernel build")
+
+    monkeypatch.setattr(kernels, "load", no_build)
+    B, N = 2, 8
+    kw = dict(Tcw0=torch.zeros(B, 4, 4), X=torch.zeros(B, N, 3), uv=torch.zeros(B, N, 2),
+              ur=torch.zeros(B, N), inv_sigma2=torch.zeros(B, N),
+              valid=torch.zeros(B, N, dtype=torch.bool),
+              stereo=torch.zeros(B, N, dtype=torch.bool))
+    kw[mask] = torch.zeros(B, N)
+    before = pose_optimization_cuda.launches
+    with pytest.raises(ValueError, match=f"{mask}: expected torch.bool"):
+        pose_optimization_cuda(SMALL_CAM, **kw)
+    assert pose_optimization_cuda.launches == before
+
+
+def test_tracker_defaults_to_the_card():
+    """An entry point given no device runs on the card or raises; it never
+    carries on on the CPU. The CPU is asked for by name."""
+    from hyslam_tpu_torch import device
+    from hyslam_tpu_torch.core.mapstate import MapCaps
+    from hyslam_tpu_torch.slam import tracker
+
+    caps = MapCaps(K=4, L=64, F=16, O=4)
+    if torch.cuda.is_available():
+        assert device.default_device().type == "cuda"
+        assert tracker.Tracker(cam=SMALL_CAM, caps=caps).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            device.default_device()
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            tracker.Tracker(cam=SMALL_CAM, caps=caps)
+    tr = tracker.Tracker(cam=SMALL_CAM, caps=caps, device="cpu")
+    assert tr.device == torch.device("cpu")
+    assert tr.ms.lm.pos.device.type == "cpu" and tr.traj.Tcw.device.type == "cpu"
 
 
 def test_kernel_build_is_keyed_and_ignored():
@@ -267,13 +309,13 @@ def test_unported_paths_raise():
 
     caps = MapCaps(K=4, L=64, F=16, O=4)
     with pytest.raises(NotImplementedError, match="step 13"):
-        tracker.Tracker(cam=SMALL_CAM, caps=caps, is_mono=True)
+        tracker.Tracker(cam=SMALL_CAM, caps=caps, is_mono=True, device="cpu")
     with pytest.raises(NotImplementedError, match="step 16"):
-        tracker.Tracker(cam=SMALL_CAM, caps=caps, reset_interval=15)
+        tracker.Tracker(cam=SMALL_CAM, caps=caps, reset_interval=15, device="cpu")
     with pytest.raises(NotImplementedError, match="step 16"):
         tracker.Tracker(cam=SMALL_CAM, caps=caps, params=TrackingParams(
-            normal=NormalStateParams(reset_interval=15)))
-    tr = tracker.Tracker(cam=SMALL_CAM, caps=caps)
+            normal=NormalStateParams(reset_interval=15)), device="cpu")
+    tr = tracker.Tracker(cam=SMALL_CAM, caps=caps, device="cpu")
     from hyslam_tpu_torch.core.frame import empty_features
     with pytest.raises(NotImplementedError, match="step 16"):
         tr.track(empty_features(16), 0.0, 0, sensor_data=object())

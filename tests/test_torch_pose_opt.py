@@ -1,7 +1,10 @@
 """The PyTorch port's pose solver against the JAX package: the plain
 ``pose_optimization`` in torch is held against JAX ``pose_optimization``
 and against ``pose_optimization_pallas`` (interpret mode on the CPU), on the
-three problems of tests/test_pose_opt_pallas.py and with its bounds."""
+three problems of tests/test_pose_opt_pallas.py and with its bounds. The
+one-evaluation schedule of the CUDA kernel, in its plain form
+(``pose_optimization_fused_schedule``), is held against the two-pass
+schedule step by step, and against the same JAX references."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,9 +16,14 @@ from hyslam_tpu.solver import residuals as j_residuals
 from hyslam_tpu.solver.pose_opt import pose_optimization as j_pose_optimization
 from hyslam_tpu_torch.geometry.camera import Camera
 from hyslam_tpu_torch.solver import residuals
-from hyslam_tpu_torch.solver.pose_opt import pose_optimization, pose_optimization_fast
+from hyslam_tpu_torch.solver import pose_opt
+from hyslam_tpu_torch.solver.pose_opt import (
+    pose_optimization,
+    pose_optimization_fast,
+    pose_optimization_fused_schedule,
+)
 
-from helpers import DEFAULT_CAM, pose_error
+from helpers import DEFAULT_CAM, perturb_pose, pose_error
 from test_pose_opt_pallas import problem
 
 torch.set_num_threads(2)
@@ -31,11 +39,20 @@ CASES = {
 }
 
 
+# a fourth problem for the schedules: outliers, half the rows stereo, and a
+# start 0.4 rad and 1.5 m off, far enough that steps are rejected on the way
+FAR = (0.25, 0.5, 0.2, 0.02)
+FAR_START = dict(rot=0.4, trans=1.5)
+SCHEDULE_CASES = [*CASES, "far_start"]
+
+
 def _inputs(case):
-    outlier_frac, stereo_frac, _, _ = CASES[case]
+    outlier_frac, stereo_frac, _, _ = FAR if case == "far_start" else CASES[case]
     rng = np.random.default_rng(0)
     _, T_true, T0, pts, uv, ur, vis, stereo, out_idx = problem(
         rng, outlier_frac=outlier_frac, stereo_frac=stereo_frac)
+    if case == "far_start":
+        T0 = perturb_pose(np.random.default_rng(5), T_true, **FAR_START)
     args = (T0, pts, uv, ur, np.ones(len(pts), np.float32), vis, stereo & vis)
     return T_true, args, out_idx
 
@@ -74,6 +91,72 @@ def test_fast_on_cpu_is_the_plain_version():
     b = pose_optimization_fast(CAM, *targs)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("case", SCHEDULE_CASES)
+def test_fused_schedule_takes_the_two_pass_steps(case):
+    """The one-evaluation schedule accepts and rejects the steps the
+    two-pass schedule does, in the same order, and lands on its pose
+    (within 1e-6: the same operations on the CPU) with the same inlier
+    mask; against the truth it meets the case's bounds, against JAX
+    pose_optimization and the Pallas kernel the bounds of
+    test_plain_solver_matches_jax_and_pallas."""
+    _, _, rot_bound, t_bound = FAR if case == "far_start" else CASES[case]
+    T_true, args, _ = _inputs(case)
+    targs = [torch.from_numpy(np.array(a)) for a in args]
+    plain = pose_optimization(CAM, *targs)
+    # the two-pass schedule with its steps recorded is pose_optimization
+    # bit for bit, so these are the steps pose_optimization took
+    recorded, two_pass = pose_optimization_fused_schedule(CAM, *targs, reuse_sums=False)
+    for x, y in zip(recorded, plain):
+        assert torch.equal(x, y)
+    res, accepts = pose_optimization_fused_schedule(CAM, *targs)
+    assert accepts.shape == (40,) and accepts.dtype == torch.bool
+    assert accepts.tolist() == two_pass.tolist()
+    assert accepts.any() and not accepts.all()
+    if case == "far_start":      # rejected before the first round has converged
+        assert not accepts[:10].all()
+    np.testing.assert_allclose(res.Tcw.numpy(), plain.Tcw.numpy(), atol=1e-6)
+    assert torch.equal(res.inliers, plain.inliers)
+    assert int(res.num_inliers) == int(plain.num_inliers)
+    assert res.num_inliers.dtype == torch.int32 and res.chi2.shape == plain.chi2.shape
+
+    T = res.Tcw.numpy()
+    rot_err, t_err = pose_error(T, T_true)
+    assert rot_err < rot_bound and t_err < t_bound, (rot_err, t_err)
+    jargs = tuple(jnp.asarray(a) for a in args)
+    ref = j_pose_optimization(DEFAULT_CAM, *jargs)
+    Tk, _, ninl_k = pose_optimization_pallas(DEFAULT_CAM, *jargs)
+    for T_ref, n_ref in ((ref.Tcw, ref.num_inliers), (Tk, ninl_k)):
+        d_rot, d_t = pose_error(T, np.asarray(T_ref))
+        assert d_rot < 0.05 and d_t < 0.01, (d_rot, d_t)
+        assert abs(int(res.num_inliers) - int(n_ref)) <= 10
+
+
+@pytest.mark.parametrize("schedule", ["two_pass", "fused"])
+@pytest.mark.parametrize("case", SCHEDULE_CASES)
+def test_result_chi2_is_the_final_chi2(case, schedule):
+    """PoseOptResult.chi2 of the CPU path is _final_chi2 at the result's
+    pose, bit for bit: what the kernel's fourth output is held against on
+    the card."""
+    _, args, _ = _inputs(case)
+    targs = [torch.from_numpy(np.array(a)) for a in args]
+    res = (pose_optimization_fast(CAM, *targs) if schedule == "two_pass"
+           else pose_optimization_fused_schedule(CAM, *targs)[0])
+    _, X, uv, ur, inv_s2, _, stereo = targs
+    want = pose_opt._final_chi2(CAM, res.Tcw, X, uv, ur, inv_s2, stereo)
+    assert torch.equal(res.chi2, want)
+    assert torch.equal(res.inliers, targs[5] & (res.chi2 <= torch.where(
+        stereo, 7.815, 5.991)))
+
+
+def test_fused_schedule_with_no_iterations_classifies_the_start():
+    _, args, _ = _inputs("stereo")
+    targs = [torch.from_numpy(np.array(a)) for a in args]
+    res, accepts = pose_optimization_fused_schedule(CAM, *targs, n_rounds=0)
+    ref = pose_optimization(CAM, *targs, n_rounds=0)
+    assert accepts.shape == (0,) and torch.equal(res.Tcw, targs[0])
+    assert torch.equal(res.inliers, ref.inliers) and torch.equal(res.chi2, ref.chi2)
 
 
 def test_residuals_and_jacobians_match_jax():

@@ -49,7 +49,7 @@ def runs():
     jt = JTracker(cam=DEFAULT_CAM, caps=JMapCaps(*CAPS),
                   policy=JPolicy(max_kf_interval=10))
     tt = Tracker(cam=camera_from(DEFAULT_CAM), caps=MapCaps(*CAPS),
-                 policy=KeyFramePolicyParams(max_kf_interval=10))
+                 policy=KeyFramePolicyParams(max_kf_interval=10), device="cpu")
     for i, f in enumerate(feats):
         jt.track(f, timestamp=0.1 * i, frame_id=i)
         tt.track(feats_to_torch(f), timestamp=0.1 * i, frame_id=i)
