@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's stereo front end and tracker on one CUDA card.
+"""Drive the PyTorch port's stereo front end, tracker and System on one CUDA card.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card and
 the CUDA toolkit:
@@ -63,6 +63,26 @@ It exits non-zero, printing no result, where CUDA is not available. Phases:
    (no K1 launch): its ATE and worst frame are printed beside the kernel
    run's, with how far the two trajectories come apart.
 
+5. The System, the way a user starts the port: ``slam.system.System`` built
+   from a ``SystemConfig`` made in code, at phase 4's operating point.
+   *sync*: ``System.track_stereo`` over the 60 frames; every pose must equal
+   phase 4's ``Tracker.track`` pose bit for bit, with the same keyframes
+   and the K1 launches the telemetry calls for. *async*
+   (``async_tracking=True, commit_lag=2``): the 60 frames and ``flush()``,
+   twice; 60 telemetry rows in frame order, state NORMAL, phase 4's accuracy
+   gates by ``io.evaluate.ate_rmse``, K1 launches as the telemetry calls for,
+   identical frame lines in both runs. Frames/s and ms/frame of each mode
+   over the frames after the first N_WARM, the window closed by ``flush()``.
+   Then the synchronising calls a steady-state frame makes, with and without
+   a keyframe, in each mode (``torch.cuda.set_sync_debug_mode("warn")``),
+   printed with their sites; the async loop's own code must make none. *RGB-D*: 30 frames through
+   ``System.track_rgbd`` with depth rendered from the truth. *from disk*:
+   20 frames written in the KITTI layout (8-bit PGM), read back by
+   ``io.datasets.KittiOdometry`` and fed to a fresh System, whose poses must
+   equal those of a System fed the same 8-bit frames from memory; then the
+   TUM trajectory file, a checkpoint, its restore into a second System, and
+   one more frame tracked by both to the same pose.
+
 Prints the card line, one JSON line of kernel results (with the kernel's
 time: its bound and what sets it, its fixed part and its time an
 iteration), and last
@@ -72,6 +92,7 @@ iteration), and last
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -122,6 +143,10 @@ MAX_T_TRACK, MAX_ATE = 0.08, 0.035
 MIN_KEYFRAMES = 5
 MIN_LIVE_OF_SEEDED = 0.75     # live landmarks at the end / seeded at init
 N_COMPARE = 3
+# phase 5: frames before the timed window, frames of the RGB-D and disk
+# runs and of the runs that count synchronising calls
+N_WARM, N_RGBD, N_DISK, N_SYNC_COUNT = 10, 30, 20, 24
+MIN_SEEDED_RGBD = 100
 
 
 def log(msg: str) -> None:
@@ -383,7 +408,7 @@ def camera_and_config():
 def render_sequence(cam, dev, n: int):
     """n stereo pairs of a world of N_POINTS points from default_rng(0), the
     camera moving 0.08 m forward with 0.002 rad of yaw per frame. Returns
-    (poses [n] numpy, pairs [n,2,H,W] on dev)."""
+    (poses [n] numpy, pairs [n,2,H,W] on dev, the world's points)."""
     from hyslam_tpu_torch.utils import synth
 
     rng = np.random.default_rng(0)
@@ -397,7 +422,7 @@ def render_sequence(cam, dev, n: int):
     pairs = torch.from_numpy(np.stack(
         [synth.render_stereo_pair(cam, T, pts) for T in poses])).to(dev)
     log(f"rendered {n} stereo pairs {W}x{H} in {time.perf_counter() - t0:.1f} s")
-    return poses, pairs
+    return poses, pairs, pts
 
 
 def phase2(dev, cam, cfg, poses, pairs):
@@ -522,6 +547,7 @@ def phase4(dev, cam, cfg, poses, pairs):
     """The tracker on the whole sequence; see the module docstring."""
     from hyslam_tpu_torch.core.mapstate import MapCaps, n_live_landmarks
     from hyslam_tpu_torch.features.atlas import extract_atlas_batch
+    from hyslam_tpu_torch.io.evaluate import ate_rmse
     from hyslam_tpu_torch.ops.pose_opt_cuda import pose_optimization_cuda
     from hyslam_tpu_torch.slam.frontend import match_stereo_pair
     from hyslam_tpu_torch.slam.tracker import State, Tracker
@@ -580,7 +606,7 @@ def phase4(dev, cam, cfg, poses, pairs):
         log(f"  frame {i}: {t.state} motion {t.n_motion} inliers {t.n_inliers} "
             f"local {t.n_local} kf {t.kf_inserted} seeded {t.n_seeded} "
             f"rot {rot:.5f} deg t {tr:.6f} m {t.mapper_stats or ''}")
-    ate = float(np.sqrt(np.mean(np.square(errs))))
+    ate = ate_rmse(est, np.stack(poses), align="none")
     worst = int(np.argmax(errs))
     kf_stats = [t.mapper_stats for t in tels if t.mapper_stats]
     n_kf = sum(t.kf_inserted >= 0 for t in tels)
@@ -629,7 +655,7 @@ def phase4(dev, cam, cfg, poses, pairs):
     plain_launches = pose_optimization_cuda.launches
     est_p, rot_t_p = errors(plain_tracker)
     errs_p = [tr for _, tr in rot_t_p]
-    ate_p = float(np.sqrt(np.mean(np.square(errs_p))))
+    ate_p = ate_rmse(est_p, np.stack(poses), align="none")
     worst_p = int(np.argmax(errs_p))
     apart = np.linalg.norm(est[:, :3, 3] - est_p[:, :3, 3], axis=-1)
     first_apart = int(np.argmax(apart > 1e-3)) if (apart > 1e-3).any() else -1
@@ -668,7 +694,246 @@ def phase4(dev, cam, cfg, poses, pairs):
     failed = [g for g, ok in gates.items() if not ok]
     if failed:
         raise AssertionError("phase 4 failed: " + "; ".join(failed))
-    return launches
+    return {"launches": launches, "Tcw": tracker.traj.Tcw[:n].clone(),
+            "keyframes": [t.kf_inserted for t in tels]}
+
+
+def sync_sites(fn):
+    """Run fn with the synchronising-call warnings on: {"file:line": count}
+    of the calls that made the host wait for the card (reads of a device
+    value, copies between pageable host memory and the card)."""
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sites: dict = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            parts = os.path.normpath(w.filename).split(os.sep)[-2:]
+            site = f"{'/'.join(parts)}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+    return sites
+
+
+def phase5(cam, cfg, poses, pairs, pts, tracked):
+    """The System on the whole sequence; see the module docstring. Returns
+    the K1 launches of its gated runs."""
+    import tempfile
+
+    from hyslam_tpu_torch.core.mapstate import MapCaps
+    from hyslam_tpu_torch.io.config import CameraConfig, SystemConfig
+    from hyslam_tpu_torch.io.datasets import KittiOdometry
+    from hyslam_tpu_torch.io.evaluate import ate_rmse
+    from hyslam_tpu_torch.ops.pose_opt_cuda import pose_optimization_cuda
+    from hyslam_tpu_torch.slam.system import System
+    from hyslam_tpu_torch.slam.tracker import State
+    from hyslam_tpu_torch.utils import synth
+
+    n = len(poses)
+    truth = np.stack(poses)
+
+    def system(**kw):
+        # no device given: the System takes the card
+        cc = CameraConfig(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, width=cam.width,
+                          height=cam.height, bf=cam.bf, th_depth=cam.th_depth, extractor=cfg)
+        return System(SystemConfig(cameras={"SLAM": cc}, caps=MapCaps(*TRACK_CAPS),
+                                   enable_loop_closing=False, **kw))
+
+    def drive(sysm, feed, count):
+        """count frames through feed(sysm, i, timestamp), the clock started
+        (after a flush) at frame N_WARM and stopped after the last flush:
+        (K1 launches, frames/s, ms/frame)."""
+        pose_optimization_cuda.launches = 0
+        t = None
+        for i in range(count):
+            if i == N_WARM:
+                sysm.flush()
+                t = time.perf_counter()
+            feed(sysm, i, FRAME_DT * i)
+        sysm.flush()
+        dt = time.perf_counter() - t
+        return pose_optimization_cuda.launches, (count - N_WARM) / dt, 1e3 * dt / (count - N_WARM)
+
+    def stereo(sysm, i, ts):
+        sysm.track_stereo(pairs[i, 0], pairs[i, 1], ts, frame_id=i)
+
+    def expected(tracker):
+        n_min = tracker.params.motion.n_min_matches
+        return sum(2 + (t.n_motion < n_min) for t in tracker.telemetry
+                   if t.state in ("POSTINIT", "NORMAL"))
+
+    def frame_lines(tracker):
+        return [f"{t.frame_id} {t.state} {t.n_motion} {t.n_inliers} {t.n_local} "
+                f"{t.kf_inserted}" for t in tracker.telemetry] + [
+                    " ".join(f"{v:.9g}" for v in row)
+                    for row in tracker.traj.Tcw[:int(tracker.traj.size)].reshape(-1, 16).tolist()]
+
+    failed = []
+
+    def gate(name, ok):
+        log(f"phase 5 gate {'ok' if ok else 'FAILED'}: {name}")
+        if not ok:
+            failed.append(name)
+
+    total = 0
+
+    # -- sync: System.track_stereo against phase 4's Tracker.track
+    sysm = system()
+    launches, fps_sync, ms_sync = drive(sysm, stereo, n)
+    tr = sysm.trackers["SLAM"]
+    total += launches
+    gate("sync: the System took the card", sysm.device.type == "cuda")
+    gate(f"sync: {n} poses equal to phase 4's Tracker.track, bit for bit",
+         int(tr.traj.size) == n and torch.equal(tr.traj.Tcw[:n], tracked["Tcw"]))
+    gate("sync: the same keyframes as phase 4",
+         [t.kf_inserted for t in tr.telemetry] == tracked["keyframes"])
+    gate(f"sync: K1 launches {launches} == {expected(tr)} from the telemetry",
+         launches == expected(tr))
+
+    # -- async, twice
+    runs = []
+    for _ in range(2):
+        sysm = system(async_tracking=True, commit_lag=2)
+        launches, fps, ms = drive(sysm, stereo, n)
+        runs.append((sysm.trackers["SLAM"], launches, fps, ms))
+    tr, launches = runs[0][:2]
+    total += launches
+    tels = tr.telemetry
+    size = int(tr.traj.size)
+    est = tr.traj.Tcw[:size].cpu().numpy()
+    idx = np.rint(tr.traj.t[:size].cpu().numpy() / FRAME_DT).astype(int)
+    errs = [synth.pose_error(est[k], poses[i])[1] for k, i in enumerate(idx)]
+    ate = ate_rmse(est, truth[idx], align="none")
+    n_kf = sum(t.kf_inserted >= 0 for t in tels)
+    log(f"phase 5 async: {len(tels)} rows, {size} trajectory poses, {n_kf} keyframes at frames "
+        f"{[t.frame_id for t in tels if t.kf_inserted >= 0]}, ATE {ate:.6f} m, worst frame "
+        f"{int(idx[int(np.argmax(errs))])} at {max(errs):.6f} m, K1 launches {launches}")
+    gate(f"async: {n} telemetry rows in frame order, none lost, every frame in the trajectory",
+         [t.frame_id for t in tels] == list(range(n)) and size == n
+         and list(idx) == list(range(n)))
+    gate("async: state NORMAL, nothing in flight after flush",
+         tr.state == State.NORMAL and not tr._pending)
+    gate(f"async: ATE < {MAX_ATE} m and every frame < {MAX_T_TRACK} m",
+         bool(np.isfinite(est).all()) and ate < MAX_ATE and max(errs) < MAX_T_TRACK)
+    gate(f"async: K1 launches {launches} == {expected(tr)} from the telemetry",
+         launches == expected(tr))
+    gate("async: two runs print identical frame lines",
+         frame_lines(runs[0][0]) == frame_lines(runs[1][0]) and runs[1][1] == launches)
+    log("phase 5 timing: " + json.dumps({
+        "frames_timed": n - N_WARM,
+        "sync_frames_per_s": fps_sync, "sync_ms_per_frame": ms_sync,
+        "async_frames_per_s": [r[2] for r in runs], "async_ms_per_frame": [r[3] for r in runs],
+        "keyframes_sync": sum(k >= 0 for k in tracked["keyframes"]), "keyframes_async": n_kf,
+    }))
+
+    # -- the synchronising calls of a steady-state frame, by mode
+    for mode, kw in (("sync", {}), ("async", dict(async_tracking=True, commit_lag=2))):
+        sysm = system(**kw)
+        tr = sysm.trackers["SLAM"]
+        per_frame = []
+        for i in range(N_SYNC_COUNT):
+            before = len(tr.telemetry)
+            sites = sync_sites(lambda: stereo(sysm, i, FRAME_DT * i))
+            made_kf = any(t.kf_inserted >= 0 for t in tr.telemetry[before:])
+            if i >= N_WARM:
+                per_frame.append((made_kf, sites))
+        sysm.flush()
+        if mode == "async":
+            own = sorted({site for _, s in per_frame for site in s
+                          if site.startswith("slam/tracker.py")})
+            gate(f"async: the loop makes no synchronising call of its own in a steady-state "
+                 f"frame (sites in slam/tracker.py: {own})", not own)
+        for made_kf in (False, True):
+            rows = [s for k, s in per_frame if k == made_kf]
+            if rows:
+                rep = max(rows, key=lambda s: sum(s.values()))
+                log(f"phase 5 synchronising calls a {mode} frame "
+                    f"{'with' if made_kf else 'without'} a keyframe: " + json.dumps({
+                        "frames": len(rows),
+                        "median": statistics.median(sum(s.values()) for s in rows),
+                        "max": sum(rep.values()), "sites_of_the_max": rep}))
+            else:
+                log(f"phase 5 synchronising calls a {mode} frame "
+                    f"{'with' if made_kf else 'without'} a keyframe: no such frame "
+                    f"among frames {N_WARM}-{N_SYNC_COUNT - 1}")
+
+    # -- RGB-D: depth rendered from the truth
+    t0 = time.perf_counter()
+    depths = [synth.render_depth(cam, poses[i], pts) for i in range(N_RGBD)]
+    log(f"rendered {N_RGBD} depth images in {time.perf_counter() - t0:.1f} s")
+
+    def rgbd(sysm, i, ts):
+        sysm.track_rgbd(pairs[i, 0], depths[i], ts, frame_id=i)
+
+    sysm = system()
+    launches, fps, ms = drive(sysm, rgbd, N_RGBD)
+    tr = sysm.trackers["SLAM"]
+    total += launches
+    est = tr.traj.Tcw[:int(tr.traj.size)].cpu().numpy()
+    ate = ate_rmse(est, truth[:len(est)], align="se3") if len(est) == N_RGBD else float("nan")
+    log(f"phase 5 RGB-D: {len(tr.telemetry)} frames, state {tr.state.name}, "
+        f"{tr.telemetry[0].n_seeded} landmarks seeded, "
+        f"{sum(t.kf_inserted >= 0 for t in tr.telemetry)} keyframes, ATE (se3) {ate:.6f} m, "
+        f"{fps:.3f} frames/s, K1 launches {launches}")
+    gate(f"RGB-D: NORMAL after {N_RGBD} frames, > {MIN_SEEDED_RGBD} landmarks seeded, "
+         f"ATE (se3) < {MAX_ATE} m",
+         tr.state == State.NORMAL and tr.telemetry[0].n_seeded > MIN_SEEDED_RGBD
+         and ate < MAX_ATE)
+    gate(f"RGB-D: K1 launches {launches} == {expected(tr)} from the telemetry",
+         launches == expected(tr))
+
+    # -- from disk: KITTI layout, 8-bit PGM, against the same 8-bit frames
+    # from memory; then the trajectory file, checkpoint and resume
+    n8 = N_DISK + 1
+    pairs8 = np.clip(np.rint(pairs[:n8].cpu().numpy()), 0, 255).astype(np.float32)
+    with tempfile.TemporaryDirectory() as root:
+        synth.write_kitti_sequence(root, cam, pairs8[:N_DISK], FRAME_DT * np.arange(N_DISK),
+                                   poses=truth[:N_DISK])
+        ds = KittiOdometry(root, "00")
+        calib = (ds.calib.fx, ds.calib.fy, ds.calib.cx, ds.calib.cy, ds.calib.bf,
+                 ds.calib.width, ds.calib.height)
+        disk, mem = system(), system()
+        pose_optimization_cuda.launches = 0
+        n_read = 0
+        for f in ds.frames():
+            disk.track_stereo(f.img_left, f.img_right, f.timestamp, frame_id=f.frame_id)
+            n_read += 1
+        disk.flush()
+        total += pose_optimization_cuda.launches
+        for i in range(N_DISK):
+            mem.track_stereo(pairs8[i, 0], pairs8[i, 1], FRAME_DT * i, frame_id=i)
+        d, m = disk.trackers["SLAM"], mem.trackers["SLAM"]
+        gate(f"disk: {N_DISK} frames read back with the camera's calibration",
+             n_read == N_DISK and np.allclose(
+                 calib, (cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, cam.width, cam.height)))
+        gate("disk: poses equal to the in-memory run on the same 8-bit frames, bit for bit",
+             int(d.traj.size) == N_DISK and torch.equal(d.traj.Tcw[:N_DISK], m.traj.Tcw[:N_DISK])
+             and d.state == State.NORMAL)
+        tum = os.path.join(root, "trajectory_tum.txt")
+        ck = os.path.join(root, "checkpoint.npz")
+        disk.save_trajectory_tum(tum)
+        disk.save_checkpoint(ck)
+        rows = np.loadtxt(tum)
+        gate(f"disk: the TUM file holds {N_DISK} rows of unit quaternions",
+             rows.shape == (N_DISK, 8)
+             and bool(np.allclose(np.linalg.norm(rows[:, 4:], axis=1), 1.0, atol=1e-5)))
+        resumed = system()
+        resumed.load_checkpoint(ck)
+    a = resumed.track_stereo(pairs8[N_DISK, 0], pairs8[N_DISK, 1], FRAME_DT * N_DISK)
+    b = disk.track_stereo(pairs8[N_DISK, 0], pairs8[N_DISK, 1], FRAME_DT * N_DISK)
+    gate("disk: a System restored from the checkpoint tracks the next frame to the same "
+         "row and pose", a == b and a.frame_id == N_DISK
+         and torch.equal(resumed.trackers["SLAM"].last_Tcw, d.last_Tcw))
+    gate("disk: the restored System's state lives on the card",
+         resumed.trackers["SLAM"].ms.lm.pos.device.type == "cuda")
+    if failed:
+        raise AssertionError("phase 5 failed: " + "; ".join(failed))
+    return total
 
 
 def main() -> int:
@@ -685,9 +950,10 @@ def main() -> int:
     phase0()
     k1 = phase1(dev)
     cam, cfg = camera_and_config()
-    poses, pairs = render_sequence(cam, dev, N_TRACK)
+    poses, pairs, pts = render_sequence(cam, dev, N_TRACK)
     launches = phase2(dev, cam, cfg, poses, pairs)
-    launches += phase4(dev, cam, cfg, poses, pairs)
+    tracked = phase4(dev, cam, cfg, poses, pairs)
+    launches += tracked["launches"] + phase5(cam, cfg, poses, pairs, pts, tracked)
     log(json.dumps({"kernels": [{
         "name": "pose_opt",
         "route": "cuda",

@@ -1,11 +1,12 @@
-"""Carry state between the JAX package and the port.
+"""Carry state and configuration between the JAX package and the port.
 
 The port has no learned weights: its "parameters" are constant tables,
 rebuilt in the port from the same numpy code, and the map state. These
 functions turn JAX-package arrays, given as numpy (``np.asarray`` of a JAX
 array), into the port's tensors and back: features, cameras, extractor
-configs, landmark tables, whole map states and trajectories. Objects are
-read by field name, so nothing here imports the JAX package.
+configs, landmark tables, whole map states, trajectories, the async loop's
+tracker state, and a whole ``SystemConfig``. Objects are read by field name,
+so nothing here imports the JAX package.
 
 Descriptors travel as the int32 bit-view of the JAX package's uint32 lanes:
 every bit is kept, and ``features_to_numpy`` restores uint32.
@@ -157,3 +158,61 @@ def trajectory_from_numpy(traj, device=None):
 
 def trajectory_to_numpy(traj) -> dict:
     return _tuple_to(traj)
+
+
+def dev_track_state_from_numpy(dev, device=None):
+    """A JAX-package DevTrackState (its arrays through numpy), or the dict
+    from ``dev_track_state_to_numpy`` -> the port's on ``device``."""
+    from hyslam_tpu_torch.slam.strategies import DevTrackState
+
+    get = dev.__getitem__ if isinstance(dev, dict) else (lambda k: getattr(dev, k))
+    fields = {k: _tensor(get(k), device) for k in DevTrackState._fields
+              if k != "last_feats"}
+    return DevTrackState(last_feats=features_from_numpy(get("last_feats"), device),
+                         **fields)
+
+
+def dev_track_state_to_numpy(dev) -> dict:
+    d = {k: v.detach().cpu().numpy() for k, v in dev._asdict().items()
+         if k != "last_feats"}
+    d["last_feats"] = features_to_numpy(dev.last_feats)
+    return d
+
+
+def _named_tuple_from(cls, src):
+    """A NamedTuple of Python numbers (or of such NamedTuples) by field."""
+    out = {}
+    for k in cls._fields:
+        v = getattr(src, k)
+        sub = cls._field_defaults.get(k)
+        out[k] = _named_tuple_from(type(sub), v) if hasattr(sub, "_fields") else v
+    return cls(**out)
+
+
+def system_config_from(cfg, device=None):
+    """A JAX-package SystemConfig -> the port's, field by field (dataclasses
+    and NamedTuples read as plain attributes), running on ``device``."""
+    from hyslam_tpu_torch.core.mapstate import MapCaps
+    from hyslam_tpu_torch.io.config import CameraConfig, OptimizerInfo, SystemConfig
+    from hyslam_tpu_torch.slam.keyframe_policy import KeyFramePolicyParams
+    from hyslam_tpu_torch.slam.mapper import MapperParams
+    from hyslam_tpu_torch.slam.tracking_params import TrackingParams
+
+    import dataclasses
+
+    nested = {"extractor": ExtractorConfig, "policy": KeyFramePolicyParams,
+              "tracking": TrackingParams}
+    cams = {}
+    for name, cc in cfg.cameras.items():
+        kw = {f.name: getattr(cc, f.name) for f in dataclasses.fields(CameraConfig)
+              if f.name not in nested}
+        kw.update({k: _named_tuple_from(cls, getattr(cc, k)) for k, cls in nested.items()})
+        cams[name] = CameraConfig(**kw)
+    plain = ("enable_loop_closing", "vocab_path", "viewer", "pipelined",
+             "async_tracking", "commit_lag", "run_data_dir")
+    return SystemConfig(
+        cameras=cams, mapper=_named_tuple_from(MapperParams, cfg.mapper),
+        optimizer=OptimizerInfo(**{f.name: getattr(cfg.optimizer, f.name)
+                                   for f in dataclasses.fields(OptimizerInfo)}),
+        caps=_named_tuple_from(MapCaps, cfg.caps), device=device,
+        **{k: getattr(cfg, k) for k in plain})

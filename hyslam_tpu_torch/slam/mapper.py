@@ -485,18 +485,26 @@ class Mapper:
         self.scale_factor = scale_factor
         self.kf_count = 0
 
-    def integrate_keyframe(self, ms: MapState, kf_id: int, sensors=None):
+    def integrate_keyframe(self, ms: MapState, kf_id: int, sensors=None,
+                           fetch_stats: bool = True,
+                           has_priors: bool | None = None):
         """Run the jobs for keyframe kf_id. Returns (ms, stats): the job
         counters read back in one transfer, and ba_cost when local BA ran.
-        Raises NotImplementedError where local BA would need pose priors
-        (sensor readings or registered sub-maps: ROADMAP step 16)."""
+        With fetch_stats=False nothing is read back for the counters: they
+        ride back as a tensor under stats["counters"] (the async tracking
+        loop's path). ``has_priors`` lets the caller supply the host-known
+        flag "a sensor reading or a registered sub-map exists" instead of
+        the read of the device check; where it is true local BA would need
+        pose priors (ROADMAP step 16) and this raises NotImplementedError."""
         kf_id = int(kf_id)
         stats = {}
         p = self.params
         ms, counters = _integrate_core(ms, kf_id, p, self.cam, self.is_mono, True,
                                        self.n_levels, self.scale_factor)
         if self.kf_count > 2:
-            if _has_priors(ms, sensors):
+            if has_priors is None:
+                has_priors = _has_priors(ms, sensors)
+            if has_priors:
                 raise NotImplementedError(
                     "local BA with sensor / sub-map pose priors is ROADMAP "
                     "step 16, not ported")
@@ -506,8 +514,12 @@ class Mapper:
             if not self.is_mono:
                 ms, n_cull = cull_keyframes(ms, kf_id, self.cam, p)
                 counters = torch.cat([counters, n_cull[None]])
-            stats["ba_cost"] = cost
+            if fetch_stats:
+                stats["ba_cost"] = cost
         self.kf_count += 1
+        if not fetch_stats:
+            stats["counters"] = counters
+            return ms, stats
         c = counters.tolist()
         stats["triangulated"], stats["fused"], stats["fuse_added"] = c[:3]
         if len(c) > 3:

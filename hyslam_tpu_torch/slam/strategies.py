@@ -1,6 +1,6 @@
 """Tracking strategies: motion model, reference keyframe, local map
-(counterpart of ``hyslam_tpu/slam/strategies.py``, the synchronous part;
-the async ``DevTrackState`` / ``track_normal_step`` are ROADMAP step 12).
+(counterpart of ``hyslam_tpu/slam/strategies.py``), and the async tracking
+loop's per-frame step ``track_normal_step`` over ``DevTrackState``.
 
 Each strategy is a match, a pose-only LM and outlier pruning. The pose
 solve is ``pose_optimization_fast``: kernel K1 on a CUDA tensor, the plain
@@ -25,6 +25,7 @@ from hyslam_tpu_torch.features.matcher import (
     search_by_projection_frame,
     search_by_projection_landmarks,
 )
+from hyslam_tpu_torch.geometry import se3
 from hyslam_tpu_torch.geometry.camera import Camera
 from hyslam_tpu_torch.ops import indexing as ix
 from hyslam_tpu_torch.slam.localmap import LocalMap, build_local_map
@@ -198,3 +199,66 @@ def track_normal_frame(cam: Camera, cur_feats, timestamp, traj,
     return NormalFrameResult(Tcw=tr.Tcw, lm_id=tr.lm_id,
                              local_ref_kf=lres.local.ref_kf, scalars=scalars,
                              problem=lres.problem)
+
+
+class DevTrackState(NamedTuple):
+    """The tracker's per-frame state for the async tracking loop, held as
+    tensors on the tracker's device: everything ``Tracker._do_normal`` keeps
+    in host fields (last pose, its pose relative to the reference keyframe,
+    the reference ids, the last frame's features and associations),
+    updated by ``track_normal_step`` without the host reading any of it.
+    The host state machine consumes the packed decision counters
+    ``commit_lag`` frames later."""
+
+    last_Tcw: torch.Tensor     # [4,4] last successfully tracked pose
+    last_Tcr: torch.Tensor     # [4,4] last pose relative to its ref KF
+    last_ref_kf: torch.Tensor  # [] int32
+    ref_kf: torch.Tensor       # [] int32 current reference keyframe
+    last_lm_id: torch.Tensor   # [F] last frame's associations
+    last_feats: FrameFeatures  # features of the last good frame
+
+
+class AsyncStepOut(NamedTuple):
+    dev: DevTrackState
+    traj: TJ.Trajectory        # after the (conditional) append
+    scalars: torch.Tensor      # NormalFrameResult.scalars (int32 [8])
+    Tcw: torch.Tensor          # this frame's optimized pose (garbage if !ok)
+    lm_id: torch.Tensor        # [F] this frame's pruned associations
+
+
+def track_normal_step(cam: Camera, cur_feats, timestamp, traj,
+                      dev: DevTrackState, ms: MapState, min_inliers,
+                      n_levels: int = 8, scale_factor: float = 1.2,
+                      params: TrackingParams = TrackingParams()) -> AsyncStepOut:
+    """One NORMAL-state frame with the whole state update in tensors:
+    UpdateLastFrame re-anchoring (Tracking.cpp:249), ``track_normal_frame``,
+    the trajectory append and the roll-over of the last-frame state, all
+    gated on the frame's success flag, so that a lost frame freezes the state
+    at the last good frame (the host learns of the loss from the fetched
+    counters and transitions the state machine then)."""
+    # UpdateLastFrame: re-derive the last pose from the (re-optimized) ref KF
+    last_Tcw = torch.where(dev.last_ref_kf >= 0,
+                           dev.last_Tcr @ ix.take(ms.kf.Tcw, dev.last_ref_kf),
+                           dev.last_Tcw)
+    nf = track_normal_frame(
+        cam, cur_feats, timestamp, traj, last_Tcw, dev.last_feats,
+        dev.last_lm_id, dev.ref_kf, ms, min_inliers, n_levels=n_levels,
+        scale_factor=scale_factor, params=params)
+    ok = nf.scalars[6] > 0
+
+    ref_new = torch.where(ok, nf.local_ref_kf.to(dev.ref_kf.dtype), dev.ref_kf)
+    ref_pose = ix.take(ms.kf.Tcw, ref_new)
+    Tcr = nf.Tcw @ se3.inverse(ref_pose)
+    traj = TJ.append(traj, timestamp, nf.Tcw, ref_new, ref_pose, ok, commit=ok)
+
+    dev2 = DevTrackState(
+        last_Tcw=torch.where(ok, nf.Tcw, dev.last_Tcw),
+        last_Tcr=torch.where(ok, Tcr, dev.last_Tcr),
+        last_ref_kf=torch.where(ok, ref_new, dev.last_ref_kf),
+        ref_kf=ref_new,
+        last_lm_id=torch.where(ok, nf.lm_id, dev.last_lm_id),
+        last_feats=FrameFeatures(*(torch.where(ok, a, b)
+                                   for a, b in zip(cur_feats, dev.last_feats))),
+    )
+    return AsyncStepOut(dev=dev2, traj=traj, scalars=nf.scalars, Tcw=nf.Tcw,
+                        lm_id=nf.lm_id)

@@ -1,0 +1,331 @@
+"""System: the public API over the stereo / RGB-D pipeline (counterpart of
+``hyslam_tpu/slam/system.py``).
+
+Builds the camera, feature family and tracker from a ``SystemConfig``, runs
+the image front end (grayscale, ORB extraction, stereo match or depth
+sampling) and hands each frame to the tracker: synchronously
+(``Tracker.track``, one telemetry row returned per frame) or through the
+async tracking loop (``async_tracking=True``: ``Tracker.track_async``, rows
+committed ``commit_lag`` frames later, ``flush()`` to settle). Also the data
+exporters (trajectory TSV / TUM, COLMAP, Agisoft XML, map points), map and
+checkpoint files, and the TSV telemetry logs.
+
+The system lives on ``config.device``; with none given it takes the current
+CUDA card and raises where there is none. It is single-threaded and uses one
+stream.
+
+Not ported yet, each raising NotImplementedError that names its ROADMAP
+step: loop closing (``enable_loop_closing=True``, the config's default, so
+callers pass ``False``; steps 14-15), periodic global BA
+(``optimizer.realtime=False``, step 15), the threaded pipeline
+(``pipelined=True``, step 19), monocular cameras and ``track_monocular``
+(step 13), more than one camera, ``place_imaging_frame`` and
+``run_imaging_bundle_adjustment`` (step 17), ``sensor_data`` (step 16). With
+``run_data_dir`` set the TSV logs are written; the periodic annotated frame
+dumps need ``viz/`` (step 19) and are not.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict
+
+import numpy as np
+import torch
+
+from hyslam_tpu_torch.core import mapstate as M
+from hyslam_tpu_torch.core import trajectory as TJ
+from hyslam_tpu_torch.core.frame import FrameFeatures
+from hyslam_tpu_torch.device import default_device
+from hyslam_tpu_torch.features.factory import make_family
+from hyslam_tpu_torch.io import export as EXP
+from hyslam_tpu_torch.io.config import SystemConfig
+from hyslam_tpu_torch.ops.pyramid import preprocess_image
+from hyslam_tpu_torch.ops.stereo import match_stereo_refined
+from hyslam_tpu_torch.slam.tracker import Tracker
+from hyslam_tpu_torch.utils.telemetry import MappingLog, StageTimer, TrackingLog
+
+
+def _unported(config: SystemConfig) -> None:
+    """Raise for every option of the config that this port does not serve."""
+    if config.enable_loop_closing:
+        raise NotImplementedError(
+            "loop closing (place recognition, Sim3, pose graph, global BA) is "
+            "ROADMAP steps 14-15, not ported: pass enable_loop_closing=False")
+    if not config.optimizer.realtime:
+        raise NotImplementedError(
+            "periodic global BA (optimizer.realtime=False) is ROADMAP step 15")
+    if config.pipelined:
+        raise NotImplementedError(
+            "the threaded pipeline (pipelined=True) is ROADMAP step 19")
+    if len(config.cameras) != 1:
+        raise NotImplementedError(
+            "more than one camera (the Imaging camera) is ROADMAP step 17")
+    if any(cc.mono for cc in config.cameras.values()):
+        raise NotImplementedError("a monocular camera is ROADMAP step 13")
+
+
+class System:
+    """One SLAM system over one stereo or RGB-D camera, built from a
+    ``SystemConfig``. Feed it frames with ``track_stereo`` / ``track_rgbd``
+    (or features with ``track_features``), call ``flush()`` before reading
+    its trackers or stopping a clock, and ``shutdown()`` at the end. With
+    ``config.run_data_dir`` set it writes the TSV telemetry logs
+    (synchronous mode); the annotated frame dumps are not written (they
+    need ``viz/``, ROADMAP step 19). What it does not serve raises
+    NotImplementedError, see the module docstring."""
+
+    def __init__(self, config: SystemConfig | None = None):
+        self.config = config or SystemConfig()
+        _unported(self.config)
+        self.device = (torch.device(self.config.device)
+                       if self.config.device is not None else default_device())
+        self.trackers: Dict[str, Tracker] = {}
+        self.cameras = {}
+        self._frame_counter = 0
+        self._kfs_since_gba = 0
+        self._shutdown = False
+        self._tracking_log = None
+        self._mapping_log = None
+        self.timer = None
+        self._open_logs()
+        self._families = {}   # per-camera feature family
+        for name, cc in self.config.cameras.items():
+            self.cameras[name] = cc.camera()
+            self._families[name] = make_family(cc.extractor)
+            self.trackers[name] = self._make_tracker(name)
+
+    def _make_tracker(self, name: str) -> Tracker:
+        """The camera's tracker, as the config describes it (for __init__
+        and reset alike)."""
+        cc = self.config.cameras[name]
+        return Tracker(
+            cam=self.cameras[name],
+            cam_id=list(self.config.cameras).index(name),
+            caps=self.config.caps,
+            is_mono=cc.mono,
+            policy=cc.policy,
+            opt_info=self.config.optimizer,
+            n_levels=cc.extractor.n_levels,
+            scale_factor=cc.extractor.scale_factor,
+            params=cc.tracking,
+            commit_lag=self.config.commit_lag,
+            mapper_params=self.config.mapper,
+            device=self.device,
+        )
+
+    def flush(self):
+        """Async mode: commit every frame in flight, then wait until the
+        device has finished all queued work (use before reading trackers or
+        maps mid-run, and before stopping a clock). In synchronous mode only
+        the wait."""
+        for t in self.trackers.values():
+            t.drain_pending()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------ input
+
+    def _image(self, img, scale: float) -> torch.Tensor:
+        """A numpy image (or a tensor, which is not copied when it already
+        lives on the system's device) -> preprocessed grey image there."""
+        if not isinstance(img, torch.Tensor):
+            img = torch.from_numpy(np.ascontiguousarray(img))
+        return preprocess_image(img.to(self.device), scale)
+
+    def track_stereo(self, img_left, img_right, timestamp: float,
+                     camera: str = "SLAM", frame_id: int | None = None,
+                     sensor_data=None):
+        """Full stereo entry: grayscale, extraction of both images as one
+        batch of two, stereo match + sub-pixel refinement, then track."""
+        cc = self.config.cameras[camera]
+        cam = self.cameras[camera]
+        il = self._image(img_left, cam.scale)
+        ir = self._image(img_right, cam.scale)
+        feats2 = self._families[camera].extract_batch(
+            torch.stack([il, ir]), capacity=self._capacity(cc))
+        fl = FrameFeatures(*(x[0] for x in feats2))
+        fr = FrameFeatures(*(x[1] for x in feats2))
+        fl = match_stereo_refined(fl, fr, il, ir, bf=cam.bf)
+        return self.track_features(fl, timestamp, camera, frame_id, sensor_data)
+
+    def track_rgbd(self, img, depth, timestamp: float, camera: str = "SLAM",
+                   frame_id: int | None = None, sensor_data=None):
+        """RGB-D entry: extract the image's features, sample the depth image
+        at each keypoint (nearest neighbour) and fill ur = u - bf/z and
+        depth, so that the whole stereo pipeline (close-point seeding, stereo
+        BA residuals, culling thresholds) applies unchanged.
+
+        ``depth`` is a registered metric depth image [H, W] (metres; <= 0 or
+        non-finite = no reading) at the image's native resolution."""
+        cc = self.config.cameras[camera]
+        cam = self.cameras[camera]
+        gray = self._image(img, cam.scale)
+        feats = self._families[camera].extract(gray, capacity=self._capacity(cc))
+        if not isinstance(depth, torch.Tensor):
+            depth = torch.from_numpy(np.ascontiguousarray(depth))
+        dep = depth.to(device=self.device, dtype=torch.float32)
+        H0, W0 = dep.shape
+        uv0 = feats.uv / cam.scale            # native-resolution coordinates
+        ui = torch.round(uv0[:, 0]).to(torch.int64).clamp(0, W0 - 1)
+        vi = torch.round(uv0[:, 1]).to(torch.int64).clamp(0, H0 - 1)
+        z = dep[vi, ui]
+        ok = feats.valid & torch.isfinite(z) & (z > 0.05)
+        # a true division: a Python number over a tensor would multiply by
+        # the tensor's reciprocal, one rounding more
+        disparity = torch.full_like(z, cam.bf) / torch.clamp_min(z, 1e-6)
+        feats = feats._replace(
+            ur=torch.where(ok, feats.uv[:, 0] - disparity, -1.0),
+            depth=torch.where(ok, z, -1.0))
+        return self.track_features(feats, timestamp, camera, frame_id, sensor_data)
+
+    def track_monocular(self, img, timestamp: float, camera: str = "SLAM",
+                        frame_id: int | None = None, sensor_data=None):
+        raise NotImplementedError(
+            "monocular tracking (mono initializer, two-view) is ROADMAP step 13")
+
+    def track_features(self, feats: FrameFeatures, timestamp: float,
+                       camera: str = "SLAM", frame_id: int | None = None,
+                       sensor_data=None):
+        """Feature-level entry (features on the system's device). Returns
+        the frame's TrackerTelemetry; in async mode None while the frame is
+        in flight (its row appears in the tracker's telemetry at commit)."""
+        if self._shutdown:
+            raise RuntimeError("System is shut down")
+        if sensor_data is not None:
+            raise NotImplementedError(
+                "sensor readings on keyframes feed pose priors, ROADMAP step 16")
+        if frame_id is None:
+            frame_id = self._frame_counter
+        self._frame_counter += 1
+        if self.config.async_tracking:
+            return self.trackers[camera].track_async(feats, timestamp, frame_id)
+        return self._track_features_inline(feats, timestamp, camera, frame_id)
+
+    def _track_features_inline(self, feats, timestamp, camera, frame_id):
+        """One frame through the state machine, and its telemetry rows."""
+        tracker = self.trackers[camera]
+        tel = tracker.track(feats, timestamp, frame_id)
+        if self._tracking_log is not None:
+            # the live landmark count, not the allocation cursor: with slot
+            # recycling next_lm can pass both the live size and the capacity
+            n_kfs, n_lm = torch.stack([
+                tracker.ms.next_kf, M.n_live_landmarks(tracker.ms).to(torch.int32)
+            ]).tolist()
+            self._tracking_log.log(camera, tel, timestamp, n_kfs=n_kfs,
+                                   n_landmarks=n_lm)
+        if tel.kf_inserted >= 0:
+            if self._mapping_log is not None and tel.mapper_stats:
+                self._mapping_log.log(camera, tel.kf_inserted, tel.mapper_stats)
+            self._kfs_since_gba += 1
+        return tel
+
+    def _refresh_trajectory(self, camera: str):
+        """Re-derive every trajectory pose from its (re-optimized) reference
+        keyframe."""
+        t = self.trackers[camera]
+        t.traj = TJ.refresh(t.traj, t.ms.kf.Tcw, t.ms.kf.bad,
+                            t.ms.kf.span_parent, t.ms.kf.Tcp)
+
+    # ------------------------------------------------------------- dual-camera
+
+    def place_imaging_frame(self, timestamp: float, imaging_camera: str = "Imaging"):
+        raise NotImplementedError("the Imaging camera is ROADMAP step 17")
+
+    def run_imaging_bundle_adjustment(self, imaging_camera: str = "Imaging",
+                                      sparsify_overlap: float = 0.98):
+        raise NotImplementedError("imaging bundle adjustment is ROADMAP step 17")
+
+    # ----------------------------------------------------------------- export
+
+    def save_trajectory(self, path: str, camera: str = "SLAM"):
+        self._refresh_trajectory(camera)
+        EXP.save_trajectory_tsv(path, self.trackers[camera].traj, name=camera)
+
+    def save_trajectory_tum(self, path: str, camera: str = "SLAM"):
+        self._refresh_trajectory(camera)
+        EXP.save_trajectory_tum(path, self.trackers[camera].traj)
+
+    def export_colmap(self, folder: str):
+        for name, t in self.trackers.items():
+            EXP.export_colmap(folder, t.ms, self.cameras[name], name)
+
+    def save_keyframes_agisoft(self, path: str, camera: str = "SLAM"):
+        EXP.save_keyframes_agisoft(path, self.trackers[camera].ms,
+                                   self.cameras[camera], camera)
+
+    def save_map(self, path: str, camera: str = "SLAM"):
+        EXP.save_map_state(path, self.trackers[camera].ms)
+
+    def load_map(self, path: str, camera: str = "SLAM"):
+        """Replace the camera's map by a file's (of either package). In
+        async mode the frames in flight are committed first and the tracker
+        leaves its tensor state, so that the next frame re-reads the new
+        map's keyframe cursor."""
+        t = self.trackers[camera]
+        t.drain_pending()
+        t._sync_dev_to_host()
+        t.ms = EXP.load_map_state(path, self.device)
+
+    def save_checkpoint(self, path: str, camera: str = "SLAM"):
+        """Full resume checkpoint: map, trajectory, sensors, tracker state
+        and the System's counters. In async mode the frames in flight are
+        committed first and the tracker's state is read back, so that the
+        file holds the state after the last frame fed."""
+        t = self.trackers[camera]
+        t.drain_pending()
+        t._sync_dev_to_host()
+        EXP.save_checkpoint(
+            path, t, system_scalars=(self._frame_counter, self._kfs_since_gba))
+
+    def load_checkpoint(self, path: str, camera: str = "SLAM"):
+        t = self.trackers[camera]
+        t.drain_pending()
+        t._sync_dev_to_host()
+        sys_scalars = EXP.load_checkpoint(path, t)
+        if sys_scalars is not None:
+            self._frame_counter, self._kfs_since_gba = (
+                int(x) for x in sys_scalars)
+
+    def save_map_points(self, path: str, camera: str = "SLAM"):
+        EXP.save_map_points_tsv(path, self.trackers[camera].ms)
+
+    # --------------------------------------------------------------- shutdown
+
+    def _open_logs(self):
+        if not self.config.run_data_dir:
+            return
+        d = self.config.run_data_dir
+        self._tracking_log = TrackingLog(os.path.join(d, "tracking_data.txt"))
+        self._mapping_log = MappingLog(os.path.join(d, "localmapping_data.txt"))
+        self.timer = StageTimer()
+
+    def _close_logs(self):
+        if self._tracking_log is not None:
+            self._tracking_log.close()
+            self._tracking_log = None
+        if self._mapping_log is not None:
+            self._mapping_log.close()
+            self._mapping_log = None
+
+    def shutdown(self):
+        """Close the telemetry logs and refuse further input."""
+        self._shutdown = True
+        self._close_logs()
+
+    def reset(self):
+        """Fresh trackers and reopened telemetry logs (usable again after
+        ``shutdown()``)."""
+        for name in self.config.cameras:
+            self.trackers[name] = self._make_tracker(name)
+        self._close_logs()
+        self._open_logs()
+        self._shutdown = False
+
+    # ------------------------------------------------------------------ misc
+
+    def _capacity(self, cc) -> int:
+        cap = self.config.caps.F
+        if cc.extractor.n_features > cap:
+            raise ValueError("feature budget exceeds arena capacity F")
+        return cap

@@ -1,20 +1,27 @@
 """Per-camera tracking: the state machine and per-frame orchestration
-(counterpart of ``hyslam_tpu/slam/tracker.py``, the synchronous stereo
-path).
+(counterpart of ``hyslam_tpu/slam/tracker.py``, the stereo path, synchronous
+and async).
 
   INITIALIZE -> POSTINIT (5 forced-keyframe frames) -> NORMAL
 
 A host-side state machine sequences the strategies, the keyframe policy and
-the mapper. Per NORMAL frame it reads the packed decision counters back once;
-a keyframe adds the mapper's reads. Not ported yet, each raising
-NotImplementedError where it would be entered: monocular tracking (ROADMAP
-step 13), RELOCALIZE (step 14), REINITIALIZE after a loss, forced-loss fault
-injection and sensor readings (step 16), the async tracking loop (step 12).
+the mapper. ``track`` reads the packed decision counters back once per
+NORMAL frame; a keyframe adds the mapper's reads. ``track_async`` dispatches
+a frame (``strategies.track_normal_step`` keeps the tracker's state in
+tensors), starts a non-blocking fetch of the counters, and commits the host
+decisions (loss, keyframe policy, telemetry) ``commit_lag`` frames later, so
+the host never waits for the frame it has just dispatched.
+
+Not ported yet, each raising NotImplementedError where it would be entered:
+monocular tracking (ROADMAP step 13), RELOCALIZE (step 14), REINITIALIZE
+after a loss, forced-loss fault injection and sensor readings (step 16), the
+threaded pipeline's ``mapping_status`` hook (step 19).
 """
 
 from __future__ import annotations
 
 import enum
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -35,8 +42,13 @@ from hyslam_tpu_torch.slam.keyframe_policy import (
     need_new_keyframe,
     seed_close_landmarks,
 )
-from hyslam_tpu_torch.slam.mapper import Mapper
-from hyslam_tpu_torch.slam.strategies import TrackResult, track_normal_frame
+from hyslam_tpu_torch.slam.mapper import Mapper, MapperParams
+from hyslam_tpu_torch.slam.strategies import (
+    DevTrackState,
+    TrackResult,
+    track_normal_frame,
+    track_normal_step,
+)
 from hyslam_tpu_torch.slam.tracking_params import TrackingParams
 
 
@@ -60,6 +72,22 @@ _NOT_PORTED = {
     State.NULL: "the NULL state of imaging cameras is ROADMAP step 17",
     State.NO_IMAGES_YET: "NO_IMAGES_YET is not a tracking state",
 }
+
+
+@dataclass
+class _Pending:
+    """One dispatched, uncommitted frame of the async tracking loop: the
+    tensors the lagged host decisions need, and the fetch of its counters."""
+
+    frame_id: int
+    timestamp: float
+    state_name: str
+    force_kf: bool
+    feats: FrameFeatures       # on the tracker's device
+    scalars: torch.Tensor      # int32 [8] on the host (the fetch's target)
+    fetched: object            # torch.cuda.Event after the fetch, or None
+    Tcw: torch.Tensor          # [4,4]
+    lm_id: torch.Tensor        # [F]
 
 
 @dataclass
@@ -88,6 +116,19 @@ class Tracker:
     n_levels: int = 8             # pyramid model of this camera's extractor
     scale_factor: float = 1.2
     params: TrackingParams = field(default_factory=TrackingParams)
+    commit_lag: int = 2           # async loop: frames a dispatched frame's
+                                  # host decisions trail behind (the
+                                  # reference's tracking queue blocks at
+                                  # depth 2: the same latency)
+    mapper_busy_frames: int = 2   # async loop: frames the mapper's work on
+                                  # the last keyframe is taken to occupy; the
+                                  # keyframe policy's mapping-idle gate
+                                  # (optional keyframes wait while mapping is
+                                  # busy) is estimated from it on the host
+    on_keyframe: object = None    # async loop: callable(kf_id) after a
+                                  # deferred keyframe insertion
+    mapping_status: object = None  # the threaded pipeline's hook: step 19
+    mapper_params: MapperParams = field(default_factory=MapperParams)
     device: object = None         # where the map state lives (default: the card)
 
     def __post_init__(self):
@@ -97,12 +138,16 @@ class Tracker:
         if self.reset_interval or self.params.normal.reset_interval > 0:
             raise NotImplementedError(
                 "forced-loss fault injection enters REINITIALIZE, ROADMAP step 16")
+        if self.mapping_status is not None:
+            raise NotImplementedError(
+                "mapping_status is the threaded pipeline's hook, ROADMAP step 19")
         self.device = (torch.device(self.device) if self.device is not None
                        else default_device())
         self.ms: MapState = empty_map_state(self.caps, device=self.device)
         self.sensors = empty_sensor_arena(self.caps.K, device=self.device)
         self.traj = TJ.empty_trajectory(device=self.device)
-        self.mapper = Mapper(self.cam, n_levels=self.n_levels,
+        self.mapper = Mapper(self.cam, params=self.mapper_params,
+                             n_levels=self.n_levels,
                              scale_factor=self.scale_factor)
         self.state = State.INITIALIZE
         self.last_feats: Optional[FrameFeatures] = None
@@ -118,6 +163,14 @@ class Tracker:
         self.n_frames = 0
         self.telemetry: list[TrackerTelemetry] = []
         self.last_result = None   # the last NORMAL-state NormalFrameResult
+        # the async tracking loop
+        self._pending: deque[_Pending] = deque()
+        self._dev: Optional[DevTrackState] = None
+        self._kf_mirror = 0       # host mirror of ms.next_kf (exact: every
+                                  # allocation is an event the host sees)
+        self._has_priors = False  # sensor readings / registered sub-maps
+                                  # exist (step 16 sets it)
+        self._fetch_free: list = []   # pinned (buffer, event) pairs not in use
 
     # -- public -------------------------------------------------------------
 
@@ -239,6 +292,167 @@ class Tracker:
         self.ref_kf = kf_id
         tel.kf_inserted = kf_id
         return kf_id
+
+    # -- async tracking loop --------------------------------------------------
+
+    def track_async(self, feats: FrameFeatures, timestamp: float,
+                    frame_id: int, sensor_data=None):
+        """Dispatch-only tracking for NORMAL/POSTINIT: nothing of the frame
+        it dispatches is read here; its telemetry row appears in
+        ``self.telemetry`` at commit time, ``commit_lag`` frames later, and
+        None is returned. INITIALIZE drains the pending window and runs
+        ``track``, returning its row."""
+        if sensor_data is not None:
+            raise NotImplementedError(
+                "sensor readings on keyframes feed pose priors, ROADMAP step 16")
+        if self.state not in (State.NORMAL, State.POSTINIT):
+            self.drain_pending()
+            return self.track(feats, timestamp, frame_id)
+        self.n_frames += 1
+        self._ensure_dev()
+        min_inl = (self.params.normal.thresh_refine_postreloc
+                   if self.frames_since_reloc < 30
+                   else self.params.normal.thresh_refine)
+        out = track_normal_step(
+            self.cam, feats, timestamp, self.traj, self._dev, self.ms, min_inl,
+            n_levels=self.n_levels, scale_factor=self.scale_factor,
+            params=self.params)
+        self.traj = out.traj
+        self._dev = out.dev
+        scalars, fetched = self._fetch(out.scalars)
+        self._pending.append(_Pending(
+            frame_id=frame_id, timestamp=timestamp, state_name=self.state.name,
+            force_kf=self.state == State.POSTINIT, feats=feats,
+            scalars=scalars, fetched=fetched, Tcw=out.Tcw, lm_id=out.lm_id))
+        while len(self._pending) > self.commit_lag:
+            self._commit_one()
+        return None
+
+    def drain_pending(self):
+        """Commit every dispatched frame that is still unresolved."""
+        while self._pending:
+            self._commit_one()
+
+    def _fetch(self, scalars: torch.Tensor):
+        """Start the fetch of a frame's counters: on a card a non-blocking
+        copy into a pinned host buffer of the frame's own and an event
+        recorded behind it; on the CPU a plain copy. Returns (host tensor,
+        event or None)."""
+        if scalars.device.type != "cuda":
+            return scalars.clone(), None
+        buf, event = (self._fetch_free.pop() if self._fetch_free else (
+            torch.empty(scalars.shape, dtype=scalars.dtype, pin_memory=True),
+            torch.cuda.Event()))
+        buf.copy_(scalars, non_blocking=True)
+        event.record()
+        return buf, event
+
+    def _read(self, p: _Pending) -> list:
+        """A pending frame's counters, waiting for its fetch (not for the
+        device) where it has not landed yet."""
+        if p.fetched is None:
+            return p.scalars.tolist()
+        p.fetched.synchronize()
+        s = p.scalars.tolist()
+        self._fetch_free.append((p.scalars, p.fetched))
+        return s
+
+    def _ensure_dev(self):
+        """Enter async mode: the host tracker state becomes tensors (one
+        read of the keyframe cursor for its host mirror)."""
+        if self._dev is not None:
+            return
+        i32 = dict(dtype=torch.int32, device=self.device)
+        lm = (self.last_lm_id if self.last_lm_id is not None
+              else torch.full((self.caps.F,), -1, **i32))
+        self._dev = DevTrackState(
+            last_Tcw=self.last_Tcw, last_Tcr=self.last_Tcr,
+            last_ref_kf=torch.full((), int(self.last_ref_kf), **i32),
+            ref_kf=torch.full((), int(self.ref_kf), **i32),
+            last_lm_id=lm.to(torch.int32), last_feats=self.last_feats)
+        self._kf_mirror = int(self.ms.next_kf)
+
+    def _sync_dev_to_host(self):
+        """Leave async mode: the tensors' state back into the host fields
+        that ``track`` and the checkpoint read (blocking)."""
+        if self._dev is None:
+            return
+        d = self._dev
+        self.last_Tcw = d.last_Tcw
+        self.last_Tcr = d.last_Tcr
+        self.last_ref_kf, self.ref_kf = torch.stack([d.last_ref_kf, d.ref_kf]).tolist()
+        self.last_lm_id = d.last_lm_id
+        self.last_feats = d.last_feats
+        self._dev = None
+
+    def _commit_one(self):
+        """Resolve the oldest pending frame: read its fetched counters and
+        run the host state machine for it (loss, keyframe policy, telemetry),
+        ``commit_lag`` frames late."""
+        p = self._pending.popleft()
+        s = self._read(p)
+        tel = TrackerTelemetry(frame_id=p.frame_id, state=p.state_name,
+                               n_motion=s[0], n_inliers=s[2], n_local=s[3])
+        self.telemetry.append(tel)
+        if not (s[1] and s[6]):
+            # the frames still in flight tracked against the frozen
+            # last-good state; if the tail re-acquired, the blip heals
+            # without a state transition, otherwise the tracker is lost
+            recovered = False
+            while self._pending:
+                q = self._pending.popleft()
+                sq = self._read(q)
+                self.telemetry.append(TrackerTelemetry(
+                    frame_id=q.frame_id, state=q.state_name, n_motion=sq[0],
+                    n_inliers=sq[2], n_local=sq[3]))
+                recovered = bool(sq[1] and sq[6])
+            if not recovered:
+                self._sync_dev_to_host()
+                tel.state += ">LOST"
+                self._lose_tracking()
+            return tel
+
+        self.frames_since_reloc += 1
+        if self.state == State.POSTINIT:
+            self.postinit_left -= 1
+            if self.postinit_left <= 0:
+                self.state = State.NORMAL
+
+        # mapper occupancy, estimated from the last insertion: its work is
+        # taken to last mapper_busy_frames frames
+        busy = p.frame_id < self.last_kf_frame_id + self.mapper_busy_frames
+        inp = KFDecisionInputs(
+            n_inliers=s[2], frame_id=p.frame_id,
+            last_kf_frame_id=self.last_kf_frame_id, n_kfs_in_map=s[7],
+            n_tracked_close=s[4], n_nontracked_close=s[5],
+            mapping_idle=not busy, mapping_queue_len=int(busy), is_mono=False,
+            force=p.force_kf)
+        # arena-full guard: the cursor only grows, and an insert past K
+        # would clamp in the arena while the host mirror ran on
+        if need_new_keyframe(inp, self.policy) and self._kf_mirror < self.caps.K:
+            self._insert_keyframe_deferred(p, tel)
+        return tel
+
+    def _insert_keyframe_deferred(self, p: _Pending, tel):
+        """Keyframe insertion, close-point seeding and the mapper's jobs for
+        a committed frame, whose features, pose and associations are still
+        held by its pending record. The keyframe id is the host mirror of
+        the allocation cursor, and the counters are not fetched: this adds
+        no read of its own to the mapper's."""
+        kf_id = self._kf_mirror
+        ms, _ = M.add_keyframe(self.ms, p.feats, p.Tcw, p.timestamp, p.frame_id,
+                               self.cam_id, p.lm_id)
+        ms, _ = seed_close_landmarks(ms, kf_id, self.cam)
+        self._kf_mirror += 1
+        ms, stats = self.mapper.integrate_keyframe(
+            ms, kf_id, sensors=self.sensors, fetch_stats=False,
+            has_priors=self._has_priors)
+        self.ms = ms
+        self.last_kf_frame_id = p.frame_id
+        tel.kf_inserted = kf_id
+        tel.mapper_stats = stats
+        if self.on_keyframe is not None:
+            self.on_keyframe(kf_id)
 
     def _lose_tracking(self):
         """Tracking was lost: a stereo camera enters REINITIALIZE, which is

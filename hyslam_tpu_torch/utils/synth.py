@@ -10,6 +10,8 @@ stored as float32.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 
@@ -228,3 +230,117 @@ def render_stereo_pair(cam, Tcw, pts) -> np.ndarray:
     left, _, _ = render_world(cam, Tcw, pts)
     right, _, _ = render_world(cam, (T_r @ np.asarray(Tcw, np.float32)).astype(np.float32), pts)
     return np.stack([left, right])
+
+
+def render_depth(cam, Tcw, pts, radius: int = 3, point_seed: int = 0) -> np.ndarray:
+    """Registered metric depth image [H,W] f32 for ``render_world``'s view
+    (same ``point_seed``): each visible point's z over a patch of ``radius``
+    around each of its 5 sub-blobs, where its features land; 0 where nothing
+    is drawn (no reading). Where patches overlap a pixel takes the sub-blob
+    whose centre is nearest to it, and of two equally near the nearer in z,
+    so that in a dense scene a blob keeps its own depth and not a
+    neighbour's."""
+    n = len(pts)
+    offs = np.random.default_rng(point_seed).uniform(-4, 4, size=(n, 5, 2)).astype(np.float32)
+    uv, z = _project(cam, Tcw, pts)
+    vis = (z > 0.2) & (uv[:, 0] > 8) & (uv[:, 0] < cam.width - 8) \
+        & (uv[:, 1] > 8) & (uv[:, 1] < cam.height - 8)
+    idx = np.nonzero(vis)[0]
+    idx = idx[np.argsort(-z[idx], kind="stable")]       # far points first
+    pos = (uv[idx, None, :] + offs[idx]).reshape(-1, 2)
+    x, y = np.rint(pos[:, 0]).astype(int), np.rint(pos[:, 1]).astype(int)
+    zz = np.repeat(z[idx], 5)
+    depth = np.zeros((cam.height, cam.width), np.float32)
+    # of several writes to one pixel the last stays: the outermost ring of
+    # every patch goes first, the centres last
+    offsets = sorted(((dx, dy) for dy in range(-radius, radius + 1)
+                      for dx in range(-radius, radius + 1)),
+                     key=lambda o: -(o[0] ** 2 + o[1] ** 2))
+    for dx, dy in offsets:
+        xx, yy = x + dx, y + dy
+        ok = (xx >= 0) & (xx < cam.width) & (yy >= 0) & (yy < cam.height)
+        depth[yy[ok], xx[ok]] = zz[ok]
+    return depth
+
+
+def write_pgm(path: str, img: np.ndarray, maxval: int = 255) -> None:
+    """Binary PGM (P5): 8-bit for maxval < 256, else 16-bit big-endian, as
+    ``io.datasets._imread_gray`` reads it. Values are rounded and clipped."""
+    a = np.clip(np.rint(np.asarray(img, np.float64)), 0, maxval)
+    a = a.astype(np.uint8 if maxval < 256 else ">u2")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(b"P5\n%d %d\n%d\n" % (a.shape[1], a.shape[0], maxval))
+        f.write(a.tobytes())
+
+
+def write_kitti_sequence(root: str, cam, pairs, times, poses=None,
+                         sequence: str = "00") -> None:
+    """A rendered stereo sequence in the KITTI odometry layout that
+    ``io.datasets.KittiOdometry`` reads: ``sequences/NN/image_{0,1}/*.pgm``
+    (8-bit), ``times.txt``, ``calib.txt`` (P0, P1 with -bf in P1[0,3]) and,
+    with ``poses`` (Tcw [N,4,4]), ``poses/NN.txt`` (camera-to-world 3x4 rows).
+    pairs: [N,2,H,W] grey images in [0, 255]."""
+    seq = os.path.join(root, "sequences", sequence)
+    for i, pair in enumerate(pairs):
+        for side in (0, 1):
+            write_pgm(os.path.join(seq, f"image_{side}", "%06d.pgm" % i), pair[side])
+    np.savetxt(os.path.join(seq, "times.txt"), np.asarray(times, np.float64))
+    P0 = np.zeros((3, 4))
+    P0[0, 0], P0[1, 1], P0[2, 2] = cam.fx, cam.fy, 1.0
+    P0[0, 2], P0[1, 2] = cam.cx, cam.cy
+    P1 = P0.copy()
+    P1[0, 3] = -cam.bf
+    with open(os.path.join(seq, "calib.txt"), "w") as f:
+        for k, P in (("P0", P0), ("P1", P1)):
+            f.write(k + ": " + " ".join("%.9e" % v for v in P.ravel()) + "\n")
+    if poses is not None:
+        os.makedirs(os.path.join(root, "poses"), exist_ok=True)
+        Twc = np.linalg.inv(np.asarray(poses, np.float64))
+        np.savetxt(os.path.join(root, "poses", sequence + ".txt"),
+                   Twc[:, :3, :].reshape(len(Twc), 12))
+
+
+def _quat_from_mat(R: np.ndarray) -> np.ndarray:
+    """Rotation [3,3] -> unit quaternion (w, x, y, z) with w >= 0, float64."""
+    R = np.asarray(R, np.float64)
+    d = np.array([1 + R[0, 0] + R[1, 1] + R[2, 2], 1 + R[0, 0] - R[1, 1] - R[2, 2],
+                  1 - R[0, 0] + R[1, 1] - R[2, 2], 1 - R[0, 0] - R[1, 1] + R[2, 2]])
+    cand = np.array([
+        [d[0], R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]],
+        [R[2, 1] - R[1, 2], d[1], R[0, 1] + R[1, 0], R[0, 2] + R[2, 0]],
+        [R[0, 2] - R[2, 0], R[0, 1] + R[1, 0], d[2], R[1, 2] + R[2, 1]],
+        [R[1, 0] - R[0, 1], R[0, 2] + R[2, 0], R[1, 2] + R[2, 1], d[3]]])
+    q = cand[int(np.argmax(d))]
+    q = q / np.linalg.norm(q)
+    return -q if q[0] < 0 else q
+
+
+def write_tum_sequence(root: str, images, depths, times, poses=None,
+                       depth_factor: float = 5000.0) -> None:
+    """A rendered RGB-D sequence in the TUM layout that
+    ``io.datasets.TumRgbd`` reads: ``rgb/*.pgm`` (8-bit grey), ``depth/*.pgm``
+    (16-bit, metres * depth_factor; a depth past the 16-bit range is written
+    as 0, no reading), ``rgb.txt``, ``depth.txt`` and, with ``poses`` (Tcw),
+    ``groundtruth.txt`` (ts tx ty tz qx qy qz qw, camera-to-world)."""
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "rgb.txt"), "w") as fr, \
+            open(os.path.join(root, "depth.txt"), "w") as fd:
+        fr.write("# timestamp filename\n")
+        fd.write("# timestamp filename\n")
+        for i, (img, dep, ts) in enumerate(zip(images, depths, times)):
+            write_pgm(os.path.join(root, "rgb", "%06d.pgm" % i), img)
+            raw = np.asarray(dep, np.float64) * depth_factor
+            write_pgm(os.path.join(root, "depth", "%06d.pgm" % i),
+                      np.where(raw > 65535, 0, raw), maxval=65535)
+            fr.write("%.6f rgb/%06d.pgm\n" % (ts, i))
+            fd.write("%.6f depth/%06d.pgm\n" % (ts, i))
+    if poses is not None:
+        with open(os.path.join(root, "groundtruth.txt"), "w") as f:
+            f.write("# timestamp tx ty tz qx qy qz qw\n")
+            for ts, Tcw in zip(times, poses):
+                Twc = np.linalg.inv(np.asarray(Tcw, np.float64))
+                q = _quat_from_mat(Twc[:3, :3])
+                f.write("%.6f %.9f %.9f %.9f %.9f %.9f %.9f %.9f\n" % (
+                    ts, *Twc[:3, 3], q[1], q[2], q[3], q[0]))
+

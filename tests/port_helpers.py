@@ -127,3 +127,66 @@ def ms_to_torch(ms_j):
 
 def traj_to_torch(traj_j):
     return interop.trajectory_from_numpy(jax.tree.map(np.asarray, traj_j))
+
+
+# the small system of the System-level tests: 640x360, 300 features over 4
+# levels, capacity 512, MapCaps(K=32, L=4096, F=512, O=8)
+SYS_CAM = Camera(fx=450.0, fy=450.0, cx=320.0, cy=180.0, width=640, height=360,
+                 bf=45.0)
+SYS_DT = 0.1
+
+
+def system_configs(async_tracking=False, **kw):
+    """(the JAX package's SystemConfig, the port's on the CPU) for SYS_CAM;
+    keyword arguments go to the JAX SystemConfig and are carried across."""
+    from hyslam_tpu.core.mapstate import MapCaps as JMapCaps
+    from hyslam_tpu.io.config import CameraConfig as JCameraConfig
+    from hyslam_tpu.io.config import SystemConfig as JSystemConfig
+
+    c = SYS_CAM
+    cc = JCameraConfig(fx=c.fx, fy=c.fy, cx=c.cx, cy=c.cy, width=c.width,
+                       height=c.height, bf=c.bf,
+                       extractor=JExtractorConfig(n_features=300, n_levels=4))
+    jcfg = JSystemConfig(cameras={"SLAM": cc}, caps=JMapCaps(K=32, L=4096, F=512, O=8),
+                         enable_loop_closing=False, async_tracking=async_tracking, **kw)
+    return jcfg, interop.system_config_from(jcfg, device="cpu")
+
+
+def system_sequence(n: int, seed: int = 0, n_points: int = 2000):
+    """n poses (0.1 m forward, 0.003 rad yaw a frame), the world's points
+    and the rendered stereo pairs [n,2,H,W] of tests/test_async_tracking.py's
+    world, for SYS_CAM."""
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(-10, 10, n_points), rng.uniform(-6, 6, n_points),
+                    rng.uniform(3, 30, n_points)], -1).astype(np.float32)
+    Ts = synth.make_trajectory(n, step=0.1, yaw_rate=0.003)
+    pairs = np.stack([synth.render_stereo_pair(SYS_CAM, T, pts) for T in Ts])
+    return Ts, pts, pairs
+
+
+def jax_tracker_state():
+    """A JAX-package map state and trajectory with keyframes, landmarks,
+    culled flags and the high descriptor bit set."""
+    from hyslam_tpu.core import mapstate as JM
+    from hyslam_tpu.core import trajectory as JT
+    from hyslam_tpu.geometry import se3 as jse3
+
+    rng = np.random.default_rng(11)
+    F = 16
+    desc = rng.integers(0, 2**32, (F, 8), dtype=np.uint32)
+    desc[0] = 0xFFFFFFFF
+    from hyslam_tpu.core.frame import FrameFeatures as JFF
+    f = JFF(uv=jnp.asarray(rng.uniform(0, 300, (F, 2)).astype(np.float32)),
+            ur=jnp.full((F,), 5.0), depth=jnp.asarray(rng.uniform(1, 9, F).astype(np.float32)),
+            level=jnp.zeros(F, jnp.int32), angle=jnp.zeros(F), desc=jnp.asarray(desc),
+            valid=jnp.ones(F, bool))
+    ms = JM.empty_map_state(JM.MapCaps(K=4, L=32, F=F, O=4))
+    ms, k = JM.add_keyframe(ms, f, jse3.identity(), 0.5, 3, 0, jnp.full(F, -1, jnp.int32),
+                            origin=True)
+    ms, _ = JM.add_landmarks(ms, jnp.asarray(rng.normal(0, 5, (F, 3)).astype(np.float32)),
+                             f.desc, k, jnp.arange(F, dtype=jnp.int32), jnp.arange(F) < 9)
+    ms = JM.update_landmark_stats(JM.refresh_covisibility(ms))
+    ms = JM.set_landmarks_bad(ms, jnp.arange(32) == 2)
+    traj = JT.append(JT.empty_trajectory(8), 0.5, jse3.exp(jnp.full(6, 0.1)), 0,
+                     jse3.identity(), True)
+    return ms, traj

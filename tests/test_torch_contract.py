@@ -44,6 +44,11 @@ SLICE_MODULES = [
     "hyslam_tpu_torch.slam.tracking_params", "hyslam_tpu_torch.slam.initializers",
     "hyslam_tpu_torch.slam.localmap", "hyslam_tpu_torch.slam.strategies",
     "hyslam_tpu_torch.slam.mapper", "hyslam_tpu_torch.slam.tracker",
+    "hyslam_tpu_torch.geometry.horn", "hyslam_tpu_torch.geometry.sim3",
+    "hyslam_tpu_torch.features.factory", "hyslam_tpu_torch.io.config",
+    "hyslam_tpu_torch.io.datasets", "hyslam_tpu_torch.io.evaluate",
+    "hyslam_tpu_torch.io.export", "hyslam_tpu_torch.utils.telemetry",
+    "hyslam_tpu_torch.slam.system",
 ]
 
 
@@ -65,6 +70,29 @@ def test_port_imports_without_jax():
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"
         "print('ok')\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_system_imports_and_runs_without_yaml_and_pil(tmp_path):
+    """Where ``yaml`` and ``PIL`` cannot be imported the System still loads,
+    builds from a SystemConfig made in code, and reads PGM files; only
+    ``load_config`` needs yaml."""
+    synth.write_pgm(str(tmp_path / "a.pgm"), np.arange(12.0).reshape(3, 4))
+    code = (
+        "import sys\n"
+        "sys.modules['yaml'] = None; sys.modules['PIL'] = None\n"
+        "from hyslam_tpu_torch.io.config import CameraConfig, SystemConfig, load_config\n"
+        "from hyslam_tpu_torch.io.datasets import _imread_gray\n"
+        "from hyslam_tpu_torch.slam.system import System\n"
+        "s = System(SystemConfig(cameras={'SLAM': CameraConfig(bf=45.0)},\n"
+        "                        enable_loop_closing=False, device='cpu'))\n"
+        f"assert _imread_gray({str(tmp_path / 'a.pgm')!r}).tolist()[2] == [8.0, 9.0, 10.0, 11.0]\n"
+        "try:\n"
+        "    load_config('config/sample_config.yaml')\n"
+        "except ImportError:\n"
+        "    print('ok')\n"
     )
     proc = _run(code)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
@@ -245,40 +273,12 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
         assert '"ok"' not in proc.stdout
 
 
-def _jax_tracker_state():
-    """A JAX-package map state and trajectory with keyframes, landmarks,
-    culled flags and the high descriptor bit set."""
-    from hyslam_tpu.core import mapstate as JM
-    from hyslam_tpu.core import trajectory as JT
-    from hyslam_tpu.geometry import se3 as jse3
-
-    rng = np.random.default_rng(11)
-    F = 16
-    desc = rng.integers(0, 2**32, (F, 8), dtype=np.uint32)
-    desc[0] = 0xFFFFFFFF
-    from hyslam_tpu.core.frame import FrameFeatures as JFF
-    f = JFF(uv=jnp.asarray(rng.uniform(0, 300, (F, 2)).astype(np.float32)),
-            ur=jnp.full((F,), 5.0), depth=jnp.asarray(rng.uniform(1, 9, F).astype(np.float32)),
-            level=jnp.zeros(F, jnp.int32), angle=jnp.zeros(F), desc=jnp.asarray(desc),
-            valid=jnp.ones(F, bool))
-    ms = JM.empty_map_state(JM.MapCaps(K=4, L=32, F=F, O=4))
-    ms, k = JM.add_keyframe(ms, f, jse3.identity(), 0.5, 3, 0, jnp.full(F, -1, jnp.int32),
-                            origin=True)
-    ms, _ = JM.add_landmarks(ms, jnp.asarray(rng.normal(0, 5, (F, 3)).astype(np.float32)),
-                             f.desc, k, jnp.arange(F, dtype=jnp.int32), jnp.arange(F) < 9)
-    ms = JM.update_landmark_stats(JM.refresh_covisibility(ms))
-    ms = JM.set_landmarks_bad(ms, jnp.arange(32) == 2)
-    traj = JT.append(JT.empty_trajectory(8), 0.5, jse3.exp(jnp.full(6, 0.1)), 0,
-                     jse3.identity(), True)
-    return ms, traj
-
-
 def test_interop_roundtrips_map_state_and_trajectory():
     """A JAX-package MapState and Trajectory to the port and back: every
     field unchanged, bit for bit, descriptors as uint32 again."""
-    from port_helpers import tree_np
+    from port_helpers import jax_tracker_state, tree_np
 
-    ms_j, traj_j = _jax_tracker_state()
+    ms_j, traj_j = jax_tracker_state()
     ms_t = interop.map_state_from_numpy(jax.tree.map(np.asarray, ms_j))
     assert ms_t.kf.desc.dtype == torch.int32 and ms_t.lm.valid.dtype == torch.bool
     back = interop.map_state_to_numpy(ms_t)
