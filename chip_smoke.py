@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's stereo front end, tracker and System on one CUDA card.
+"""Drive the PyTorch port's stereo front end, tracker and System on one CUDA card,
+through a loss of tracking and with sensor readings.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card and
 the CUDA toolkit:
@@ -20,7 +21,7 @@ It exits non-zero, printing no result, where CUDA is not available. Phases:
    with at most one inlier of difference; its chi2 output must be the plain
    chi2 at its pose (relative 1e-4 plus 1e-3, the 1e9 markers equal) and
    agree with its inlier mask and count. Then timed with CUDA events, 100
-   calls a run, in turns: the kernel's wrapper alone, the solver entry
+   calls a run (20 of the plain version), in turns: the kernel's wrapper alone, the solver entry
    point that calls it (which must stay within 0.03 ms of the wrapper and
    put exactly one row, the kernel, on the device), and the plain version;
    the wrapper at the schedules 0x0, 1x1 and 4x10 (rounds x iterations),
@@ -60,8 +61,9 @@ It exits non-zero, printing no result, where CUDA is not available. Phases:
    1e-3 and one inlier of the kernel. Then the median ms per frame with and
    without a keyframe, per mapper call, and the peak device memory. Last,
    the whole sequence again with the plain solver in the kernel's place
-   (no K1 launch): its ATE and worst frame are printed beside the kernel
-   run's, with how far the two trajectories come apart.
+   (no K1 launch), over the first N_PLAIN frames: its ATE and worst frame
+   are printed beside the kernel run's over the same frames, with how far
+   the two trajectories come apart.
 
 5. The System, the way a user starts the port: ``slam.system.System`` built
    from a ``SystemConfig`` made in code, at phase 4's operating point.
@@ -72,16 +74,57 @@ It exits non-zero, printing no result, where CUDA is not available. Phases:
    twice; 60 telemetry rows in frame order, state NORMAL, phase 4's accuracy
    gates by ``io.evaluate.ate_rmse``, K1 launches as the telemetry calls for,
    identical frame lines in both runs. Frames/s and ms/frame of each mode
-   over the frames after the first N_WARM, the window closed by ``flush()``.
-   Then the synchronising calls a steady-state frame makes, with and without
-   a keyframe, in each mode (``torch.cuda.set_sync_debug_mode("warn")``),
-   printed with their sites; the async loop's own code must make none. *RGB-D*: 30 frames through
+   over the frames after the first N_WARM, the window closed by ``flush()``
+   (of the first async run: the second is the one that counts).
+   The synchronising calls a steady-state frame makes, with and without
+   a keyframe (``torch.cuda.set_sync_debug_mode("warn")``), printed with
+   their sites: of the async mode over frames N_WARM to N_SYNC_COUNT - 1 of
+   the second async run, where the async loop's own code must make none; of
+   the sync mode over the same frames of phase 6a's sync run, which up to
+   the blackout is this phase's sync run. *RGB-D*: 30 frames through
    ``System.track_rgbd`` with depth rendered from the truth. *from disk*:
-   20 frames written in the KITTI layout (8-bit PGM), read back by
+   8 frames written in the KITTI layout (8-bit PGM), read back by
    ``io.datasets.KittiOdometry`` and fed to a fresh System, whose poses must
    equal those of a System fed the same 8-bit frames from memory; then the
    TUM trajectory file, a checkpoint, its restore into a second System, and
    one more frame tracked by both to the same pose.
+
+6. Loss recovery and sensor fusion, through ``System`` at the same
+   operating point. *6a, blackout*: frames 30-33 are flat images; sync, then
+   async twice. The tracker enters REINITIALIZE, the blank frames leave no
+   sub-map behind (2 maps), the sub-map is registered and tied to the last
+   reference keyframe before the loss, a row carries ``>REINIT_OK``, every
+   frame from the recovery on is tracked, local BA takes the prior path on
+   the keyframes after it, K1 launches as the telemetry calls for, ATE and
+   worst frame over the tracked frames under bounds set from readings; the
+   two async runs print identical lines, which up to the blackout are
+   phase 5's. *6b, forced loss*: ``reset_interval`` 15 from the config, 50
+   frames: at least 3 maps, every sub-map registered, trajectory rows for
+   every tracked frame. *6c, sensors*: rendered GPS, IMU and depth readings
+   on every frame with positive weights: the GPS prior becomes active with
+   the 5th keyframe that carries a fix, the prior cost is finite, ATE stays
+   within a margin of phase 4's run without sensors, and a checkpoint saved
+   after frame 40 resumes with its sensor arena to the uninterrupted run's
+   next pose. *6d*: CG against the dense solve: the pose step of the first
+   linearization within 1e-3 relative; after a few robust iterations costs
+   within 1e-4 relative and poses within 1e-3. *sensors*, the problem the
+   system produces: the local BA of 6c's last keyframe with its GPS, IMU
+   and depth priors, 5 robust iterations (local BA's phase 1), then the
+   whole two-phase schedule by each solver with the time of each, where
+   CG's cost must end no more than 1% above the dense solve's (over 15 LM
+   iterations two correct solvers part at an accept-or-reject decision, so
+   their difference is printed, not bounded). *tiepoint*, a
+   constructed problem: local BA holds a map's origin keyframe fixed and
+   gives the parent's tie keyframe no slot, so a tiepoint edge never lies
+   in a window the system builds (it is for global BA). To run the edge's
+   coupling between two poses through both solvers on the card all the
+   same, the window of the first keyframe after 6a's recovery is changed:
+   the tie keyframe takes a free slot as the fixed anchor, the sub-map's
+   origin is let move and the edge, at weight TIE_INFO_6D, is what holds
+   the sub-map; N_TIE_ITERS robust iterations by each solver. Printed: ms per
+   ``integrate_keyframe`` with and without priors, ms of
+   ``build_pose_priors``, the synchronising calls of a keyframe frame on the
+   prior path.
 
 Prints the card line, one JSON line of kernel results (with the kernel's
 time: its bound and what sets it, its fixed part and its time an
@@ -111,6 +154,7 @@ CAPACITY = 1024
 N_LANDMARKS = 4096
 N_POINTS = 4000
 N_TIMED = 100
+N_TIMED_PLAIN = 20            # calls a run of the plain solver (160 ms a call)
 # per-frame pose bounds against the rendered truth. The map is seeded from
 # frame 0 only, so the error grows as the camera moves away from it: frames
 # 1-3 are held to 0.05 m, every frame to 0.08 m; at this size the port's
@@ -145,8 +189,42 @@ MIN_LIVE_OF_SEEDED = 0.75     # live landmarks at the end / seeded at init
 N_COMPARE = 3
 # phase 5: frames before the timed window, frames of the RGB-D and disk
 # runs and of the runs that count synchronising calls
-N_WARM, N_RGBD, N_DISK, N_SYNC_COUNT = 10, 30, 20, 24
+N_WARM, N_RGBD, N_DISK, N_SYNC_COUNT = 10, 30, 8, 24
 MIN_SEEDED_RGBD = 100
+N_PLAIN = 30                  # phase 4: frames of the run with the plain solver
+# phase 6: the blackout (frames DARK[0]..DARK[1]-1 are flat), the forced
+# loss, the sensors' weights and noise, the checkpoint's frame. The bounds
+# are 1.5x the sync run's readings on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md): after 4 blank frames the sub-map is placed by a 5-frame
+# extrapolation of the motion model, 0.089 m off in the sync run, and
+# nothing in local BA pulls it back (ATE 0.059558 m, worst frame 0.097339 m;
+# async 0.045802 and 0.070978 m)
+DARK = (30, 34)
+MAX_ATE_BLACKOUT, MAX_T_BLACKOUT = 0.09, 0.15
+RESET_INTERVAL, N_FORCED = 15, 50
+SENSOR_WEIGHTS = dict(gps_info=10.0, imu_info=1.0, depth_info=10.0)
+GPS_SIGMA = (0.01, 0.01, 0.02)
+MAX_ATE_OVER_NO_SENSORS = 0.01    # m, 6c's ATE above the run without sensors
+CHECKPOINT_FRAME = 40
+N_PRIOR_SYNC_COUNT = 12       # last frames of 6a's sync run, counted
+# CG against dense, held where the comparison is well defined (readings on an
+# NVIDIA H100 80GB HBM3 at 700 W, PERF.md): the pose step of one
+# linearization (1.4e-4 relative seen), and a few robust iterations (cost
+# 1.2e-7 relative, poses 2.7e-5 on 6c's window; 1.6e-5 and 8.0e-5 on the
+# constructed one). Over the whole schedule two correct solvers part: in the
+# non-robust phase, at a damping of ~1e-6, a step with a far landmark in it
+# is accepted by one solver and rejected by the other (its cost 38469
+# against 428), and from there on they follow different paths to costs 7e-4
+# and poses 7e-3 apart, neither converged after 10 iterations. There the
+# gate is one-sided: CG must end no more than 1% above the dense solve.
+CG_STEP_RTOL, CG_COST_RTOL, CG_POSE_ATOL, CG_WHOLE_COST_RTOL = 1e-3, 1e-4, 1e-3, 1e-2
+N_SHORT_ITERS = 5             # robust iterations of 6d's short solve (local BA's phase 1)
+# 6d's constructed tiepoint problem: the edge is the only thing that holds
+# the released sub-map, so its weight decides the conditioning. At the
+# default 1e4 the cost is a valley along the sub-map's motion and the two
+# solvers ended 4.4e-3 apart in pose (costs 1.4e-3 relative); at 1e6 the
+# edge dominates and they agree to 1.5e-5
+TIE_INFO_6D, N_TIE_ITERS = 1e6, 3
 
 
 def log(msg: str) -> None:
@@ -301,8 +379,9 @@ def phase1(dev):
     torch.cuda.synchronize()
     runs = {k: [] for k in fns}
     for which in ("plain", "kernel", "fast", "fast", "kernel", "plain"):
-        runs[which].append(cuda_ms(fns[which], N_TIMED))
-    log(f"phase 1 timing, N={CAPACITY}, {N_TIMED} calls per run, ms/call: "
+        runs[which].append(cuda_ms(fns[which], N_TIMED_PLAIN if which == "plain" else N_TIMED))
+    log(f"phase 1 timing, N={CAPACITY}, {N_TIMED} calls per run ({N_TIMED_PLAIN} of the "
+        f"plain solver), ms/call: "
         + ", ".join(f"{k} {v}" for k, v in runs.items()))
     k_ms, fast_ms = statistics.mean(runs["kernel"]), statistics.mean(runs["fast"])
     rows = [name for name, _ in device_rows(fns["fast"])]
@@ -554,11 +633,11 @@ def phase4(dev, cam, cfg, poses, pairs):
     from hyslam_tpu_torch.solver.pose_opt import pose_optimization, pose_optimization_fast
     from hyslam_tpu_torch.utils import synth
 
-    def track_all(tracker):
-        """Every frame through extraction, stereo matching and track():
+    def track_all(tracker, count):
+        """count frames through extraction, stereo matching and track():
         ([(ms, made a keyframe)], {frame: its NORMAL-state result})."""
         frame_ms, normal = [], {}
-        for i in range(len(poses)):
+        for i in range(count):
             t = time.perf_counter()
             fl = match_stereo_pair(cam, extract_atlas_batch(pairs[i], cfg, CAPACITY), pairs[i])
             tel = tracker.track(fl, FRAME_DT * i, i)
@@ -568,9 +647,9 @@ def phase4(dev, cam, cfg, poses, pairs):
                 normal[i] = (tracker.last_result, tel.n_inliers)
         return frame_ms, normal
 
-    def errors(tracker):
-        est = tracker.traj.Tcw[:len(poses)].cpu().numpy()
-        return est, [synth.pose_error(est[i], poses[i]) for i in range(len(poses))]
+    def errors(tracker, count):
+        est = tracker.traj.Tcw[:count].cpu().numpy()
+        return est, [synth.pose_error(est[i], poses[i]) for i in range(count)]
 
     tracker = Tracker(cam=cam, caps=MapCaps(*TRACK_CAPS), device=dev)
     mapper_ms = []
@@ -591,7 +670,7 @@ def phase4(dev, cam, cfg, poses, pairs):
 
     # the main path: counts to 0, track every frame, read the counts
     pose_optimization_cuda.launches = 0
-    frame_ms, normal = track_all(tracker)
+    frame_ms, normal = track_all(tracker, n)
     launches = pose_optimization_cuda.launches
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
 
@@ -599,7 +678,7 @@ def phase4(dev, cam, cfg, poses, pairs):
     n_min = tracker.params.motion.n_min_matches
     expected = sum(2 + (t.n_motion < n_min) for t in tels
                    if t.state in ("POSTINIT", "NORMAL"))
-    est, rot_t = errors(tracker)
+    est, rot_t = errors(tracker, n)
     errs = [tr for _, tr in rot_t]
     for i, t in enumerate(tels):
         rot, tr = rot_t[i]
@@ -649,20 +728,22 @@ def phase4(dev, cam, cfg, poses, pairs):
     pose_optimization_cuda.launches = 0
     strategies.pose_optimization_fast = pose_optimization
     try:
-        track_all(plain_tracker)
+        track_all(plain_tracker, N_PLAIN)
     finally:
         strategies.pose_optimization_fast = pose_optimization_fast
     plain_launches = pose_optimization_cuda.launches
-    est_p, rot_t_p = errors(plain_tracker)
+    est_p, rot_t_p = errors(plain_tracker, N_PLAIN)
     errs_p = [tr for _, tr in rot_t_p]
-    ate_p = ate_rmse(est_p, np.stack(poses), align="none")
-    worst_p = int(np.argmax(errs_p))
-    apart = np.linalg.norm(est[:, :3, 3] - est_p[:, :3, 3], axis=-1)
+    ate_p = ate_rmse(est_p, np.stack(poses[:N_PLAIN]), align="none")
+    ate_k = ate_rmse(est[:N_PLAIN], np.stack(poses[:N_PLAIN]), align="none")
+    worst_p, worst_k = int(np.argmax(errs_p)), int(np.argmax(errs[:N_PLAIN]))
+    apart = np.linalg.norm(est[:N_PLAIN, :3, 3] - est_p[:, :3, 3], axis=-1)
     first_apart = int(np.argmax(apart > 1e-3)) if (apart > 1e-3).any() else -1
-    log(f"phase 4 with the plain solver in K1's place: ATE {ate_p:.6f} m, worst frame "
-        f"{worst_p} at {errs_p[worst_p]:.6f} m, frame {worst} at {errs_p[worst]:.6f} m; "
-        f"kernel and plain trajectories at most {apart.max():.6f} m apart (frame "
-        f"{int(apart.argmax())}), first over 0.001 m at frame {first_apart}; "
+    log(f"phase 4 with the plain solver in K1's place, frames 0-{N_PLAIN - 1}: ATE "
+        f"{ate_p:.6f} m, worst frame {worst_p} at {errs_p[worst_p]:.6f} m (the kernel run "
+        f"over the same frames: ATE {ate_k:.6f} m, worst frame {worst_k} at "
+        f"{errs[worst_k]:.6f} m); kernel and plain trajectories at most {apart.max():.6f} m "
+        f"apart (frame {int(apart.argmax())}), first over 0.001 m at frame {first_apart}; "
         f"K1 launches {plain_launches}")
 
     gates = {
@@ -688,14 +769,15 @@ def phase4(dev, cam, cfg, poses, pairs):
             len(compared) >= N_COMPARE and worst in normal and all(
                 e < MAX_ABS_DT_SLICE and d <= MAX_D_INLIERS_PROBLEM for _, e, d in compared),
         "the run with the plain solver: every frame tracked, finite poses, no K1 launch":
-            plain_tracker.state == State.NORMAL and len(plain_tracker.telemetry) == n
+            plain_tracker.state == State.NORMAL and len(plain_tracker.telemetry) == N_PLAIN
+            and int(plain_tracker.traj.size) == N_PLAIN
             and bool(np.isfinite(est_p).all()) and plain_launches == 0,
     }
     failed = [g for g, ok in gates.items() if not ok]
     if failed:
         raise AssertionError("phase 4 failed: " + "; ".join(failed))
     return {"launches": launches, "Tcw": tracker.traj.Tcw[:n].clone(),
-            "keyframes": [t.kf_inserted for t in tels]}
+            "keyframes": [t.kf_inserted for t in tels], "ate": ate}
 
 
 def sync_sites(fn):
@@ -720,17 +802,81 @@ def sync_sites(fn):
     return sites
 
 
-def phase5(cam, cfg, poses, pairs, pts, tracked):
-    """The System on the whole sequence; see the module docstring. Returns
-    the K1 launches of its gated runs."""
-    import tempfile
+def log_sync_calls(phase: str, mode: str, per_frame) -> None:
+    """Print the synchronising calls of the counted frames [(made a
+    keyframe, {site: count})], those with and those without a keyframe."""
+    for made_kf in (False, True):
+        rows = [s for k, s in per_frame if k == made_kf]
+        what = (f"{phase} synchronising calls {'an' if mode[0] in 'aeiou' else 'a'} {mode} frame "
+                f"{'with' if made_kf else 'without'} a keyframe")
+        if rows:
+            rep = max(rows, key=lambda s: sum(s.values()))
+            log(f"{what}: " + json.dumps({
+                "frames": len(rows),
+                "median": statistics.median(sum(s.values()) for s in rows),
+                "max": sum(rep.values()), "sites_of_the_max": rep}))
+        else:
+            log(f"{what}: no such frame among frames {N_WARM}-{N_SYNC_COUNT - 1}")
 
+
+def make_system(cam, cfg, camera_kw=None, **kw):
+    """A System at the operating point of phases 4-6, built the way a user
+    builds one: from a SystemConfig made in code, with no device given, so
+    that it takes the card."""
     from hyslam_tpu_torch.core.mapstate import MapCaps
     from hyslam_tpu_torch.io.config import CameraConfig, SystemConfig
+    from hyslam_tpu_torch.slam.system import System
+
+    cc = CameraConfig(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, width=cam.width,
+                      height=cam.height, bf=cam.bf, th_depth=cam.th_depth, extractor=cfg,
+                      **(camera_kw or {}))
+    return System(SystemConfig(cameras={"SLAM": cc}, caps=MapCaps(*TRACK_CAPS),
+                               enable_loop_closing=False, **kw))
+
+
+def tracked_row(t) -> bool:
+    """Whether a telemetry row's frame went through the NORMAL-state
+    tracking step (a forced loss returns before it)."""
+    return t.state.split(">")[0] in ("POSTINIT", "NORMAL") and "FORCED_LOSS" not in t.state
+
+
+def expected_launches(tracker) -> int:
+    """The K1 launches the telemetry calls for: 2 a frame through the
+    NORMAL-state step, 3 where its motion model failed."""
+    n_min = tracker.params.motion.n_min_matches
+    return sum(2 + (t.n_motion < n_min) for t in tracker.telemetry if tracked_row(t))
+
+
+def frame_lines(tracker):
+    """(one line a telemetry row, one line a trajectory pose)."""
+    return ([f"{t.frame_id} {t.state} {t.n_motion} {t.n_inliers} {t.n_local} "
+             f"{t.kf_inserted}" for t in tracker.telemetry],
+            [" ".join(f"{v:.9g}" for v in row)
+             for row in tracker.traj.Tcw[:int(tracker.traj.size)].reshape(-1, 16).tolist()])
+
+
+def trajectory_errors(tracker, poses):
+    """(frame index of each trajectory row, ATE, per-row translation error)
+    against the rendered truth."""
+    from hyslam_tpu_torch.io.evaluate import ate_rmse
+    from hyslam_tpu_torch.utils import synth
+
+    size = int(tracker.traj.size)
+    est = tracker.traj.Tcw[:size].cpu().numpy()
+    idx = np.rint(tracker.traj.t[:size].cpu().numpy() / FRAME_DT).astype(int)
+    errs = [synth.pose_error(est[k], poses[i])[1] for k, i in enumerate(idx)]
+    ate = ate_rmse(est, np.stack(poses)[idx], align="none")
+    return idx, (ate if np.isfinite(est).all() else float("nan")), errs
+
+
+def phase5(cam, cfg, poses, pairs, pts, tracked):
+    """The System on the whole sequence; see the module docstring. Returns
+    the K1 launches of its gated runs and the async run's frame lines."""
+    import tempfile
+
     from hyslam_tpu_torch.io.datasets import KittiOdometry
     from hyslam_tpu_torch.io.evaluate import ate_rmse
     from hyslam_tpu_torch.ops.pose_opt_cuda import pose_optimization_cuda
-    from hyslam_tpu_torch.slam.system import System
     from hyslam_tpu_torch.slam.tracker import State
     from hyslam_tpu_torch.utils import synth
 
@@ -738,11 +884,7 @@ def phase5(cam, cfg, poses, pairs, pts, tracked):
     truth = np.stack(poses)
 
     def system(**kw):
-        # no device given: the System takes the card
-        cc = CameraConfig(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, width=cam.width,
-                          height=cam.height, bf=cam.bf, th_depth=cam.th_depth, extractor=cfg)
-        return System(SystemConfig(cameras={"SLAM": cc}, caps=MapCaps(*TRACK_CAPS),
-                                   enable_loop_closing=False, **kw))
+        return make_system(cam, cfg, **kw)
 
     def drive(sysm, feed, count):
         """count frames through feed(sysm, i, timestamp), the clock started
@@ -762,17 +904,7 @@ def phase5(cam, cfg, poses, pairs, pts, tracked):
     def stereo(sysm, i, ts):
         sysm.track_stereo(pairs[i, 0], pairs[i, 1], ts, frame_id=i)
 
-    def expected(tracker):
-        n_min = tracker.params.motion.n_min_matches
-        return sum(2 + (t.n_motion < n_min) for t in tracker.telemetry
-                   if t.state in ("POSTINIT", "NORMAL"))
-
-    def frame_lines(tracker):
-        return [f"{t.frame_id} {t.state} {t.n_motion} {t.n_inliers} {t.n_local} "
-                f"{t.kf_inserted}" for t in tracker.telemetry] + [
-                    " ".join(f"{v:.9g}" for v in row)
-                    for row in tracker.traj.Tcw[:int(tracker.traj.size)].reshape(-1, 16).tolist()]
-
+    expected = expected_launches
     failed = []
 
     def gate(name, ok):
@@ -795,20 +927,28 @@ def phase5(cam, cfg, poses, pairs, pts, tracked):
     gate(f"sync: K1 launches {launches} == {expected(tr)} from the telemetry",
          launches == expected(tr))
 
-    # -- async, twice
+    # -- async, twice; the second run counts the synchronising calls of
+    # frames N_WARM to N_SYNC_COUNT - 1, so only the first is timed
+    per_frame = []
+
+    def counting(sysm, i, ts):
+        if not N_WARM <= i < N_SYNC_COUNT:
+            return stereo(sysm, i, ts)
+        rows = sysm.trackers["SLAM"].telemetry
+        before = len(rows)
+        sites = sync_sites(lambda: stereo(sysm, i, ts))
+        per_frame.append((any(t.kf_inserted >= 0 for t in rows[before:]), sites))
+
     runs = []
-    for _ in range(2):
+    for feed in (stereo, counting):
         sysm = system(async_tracking=True, commit_lag=2)
-        launches, fps, ms = drive(sysm, stereo, n)
-        runs.append((sysm.trackers["SLAM"], launches, fps, ms))
-    tr, launches = runs[0][:2]
+        runs.append((sysm.trackers["SLAM"], *drive(sysm, feed, n)))
+    tr, launches, fps_async, ms_async = runs[0]
+    async_lines = frame_lines(tr)
     total += launches
     tels = tr.telemetry
     size = int(tr.traj.size)
-    est = tr.traj.Tcw[:size].cpu().numpy()
-    idx = np.rint(tr.traj.t[:size].cpu().numpy() / FRAME_DT).astype(int)
-    errs = [synth.pose_error(est[k], poses[i])[1] for k, i in enumerate(idx)]
-    ate = ate_rmse(est, truth[idx], align="none")
+    idx, ate, errs = trajectory_errors(tr, poses)
     n_kf = sum(t.kf_inserted >= 0 for t in tels)
     log(f"phase 5 async: {len(tels)} rows, {size} trajectory poses, {n_kf} keyframes at frames "
         f"{[t.frame_id for t in tels if t.kf_inserted >= 0]}, ATE {ate:.6f} m, worst frame "
@@ -819,48 +959,24 @@ def phase5(cam, cfg, poses, pairs, pts, tracked):
     gate("async: state NORMAL, nothing in flight after flush",
          tr.state == State.NORMAL and not tr._pending)
     gate(f"async: ATE < {MAX_ATE} m and every frame < {MAX_T_TRACK} m",
-         bool(np.isfinite(est).all()) and ate < MAX_ATE and max(errs) < MAX_T_TRACK)
+         ate < MAX_ATE and max(errs) < MAX_T_TRACK)
     gate(f"async: K1 launches {launches} == {expected(tr)} from the telemetry",
          launches == expected(tr))
     gate("async: two runs print identical frame lines",
-         frame_lines(runs[0][0]) == frame_lines(runs[1][0]) and runs[1][1] == launches)
+         async_lines == frame_lines(runs[1][0]) and runs[1][1] == launches)
     log("phase 5 timing: " + json.dumps({
         "frames_timed": n - N_WARM,
         "sync_frames_per_s": fps_sync, "sync_ms_per_frame": ms_sync,
-        "async_frames_per_s": [r[2] for r in runs], "async_ms_per_frame": [r[3] for r in runs],
+        "async_frames_per_s": fps_async, "async_ms_per_frame": ms_async,
         "keyframes_sync": sum(k >= 0 for k in tracked["keyframes"]), "keyframes_async": n_kf,
     }))
 
-    # -- the synchronising calls of a steady-state frame, by mode
-    for mode, kw in (("sync", {}), ("async", dict(async_tracking=True, commit_lag=2))):
-        sysm = system(**kw)
-        tr = sysm.trackers["SLAM"]
-        per_frame = []
-        for i in range(N_SYNC_COUNT):
-            before = len(tr.telemetry)
-            sites = sync_sites(lambda: stereo(sysm, i, FRAME_DT * i))
-            made_kf = any(t.kf_inserted >= 0 for t in tr.telemetry[before:])
-            if i >= N_WARM:
-                per_frame.append((made_kf, sites))
-        sysm.flush()
-        if mode == "async":
-            own = sorted({site for _, s in per_frame for site in s
-                          if site.startswith("slam/tracker.py")})
-            gate(f"async: the loop makes no synchronising call of its own in a steady-state "
-                 f"frame (sites in slam/tracker.py: {own})", not own)
-        for made_kf in (False, True):
-            rows = [s for k, s in per_frame if k == made_kf]
-            if rows:
-                rep = max(rows, key=lambda s: sum(s.values()))
-                log(f"phase 5 synchronising calls a {mode} frame "
-                    f"{'with' if made_kf else 'without'} a keyframe: " + json.dumps({
-                        "frames": len(rows),
-                        "median": statistics.median(sum(s.values()) for s in rows),
-                        "max": sum(rep.values()), "sites_of_the_max": rep}))
-            else:
-                log(f"phase 5 synchronising calls a {mode} frame "
-                    f"{'with' if made_kf else 'without'} a keyframe: no such frame "
-                    f"among frames {N_WARM}-{N_SYNC_COUNT - 1}")
+    # -- the synchronising calls of a steady-state async frame
+    own = sorted({site for _, sites in per_frame for site in sites
+                  if site.startswith("slam/tracker.py")})
+    gate(f"async: the loop makes no synchronising call of its own in a steady-state "
+         f"frame (sites in slam/tracker.py: {own})", len(per_frame) > 0 and not own)
+    log_sync_calls("phase 5", "async", per_frame)
 
     # -- RGB-D: depth rendered from the truth
     t0 = time.perf_counter()
@@ -933,6 +1049,430 @@ def phase5(cam, cfg, poses, pairs, pts, tracked):
          resumed.trackers["SLAM"].ms.lm.pos.device.type == "cuda")
     if failed:
         raise AssertionError("phase 5 failed: " + "; ".join(failed))
+    return total, async_lines
+
+
+def phase6(cam, cfg, poses, pairs, tracked, async_lines5):
+    """Loss recovery and sensor fusion through the System; see the module
+    docstring. Returns the K1 launches of its gated runs."""
+    import tempfile
+
+    from hyslam_tpu_torch.core.sensordata import SensorData
+    from hyslam_tpu_torch.io.config import OptimizerInfo
+    from hyslam_tpu_torch.ops.pose_opt_cuda import pose_optimization_cuda
+    from hyslam_tpu_torch.slam import mapper as mapper_mod
+    from hyslam_tpu_torch.slam import sensor_fusion
+    from hyslam_tpu_torch.slam.tracker import State
+    from hyslam_tpu_torch.slam.tracking_params import NormalStateParams, TrackingParams
+    from hyslam_tpu_torch.solver import ba, priors
+    from hyslam_tpu_torch.utils import synth
+
+    n = len(poses)
+    failed = []
+    total = 0
+
+    def gate(name, ok):
+        log(f"phase 6 gate {'ok' if ok else 'FAILED'}: {name}")
+        if not ok:
+            failed.append(name)
+
+    def run(sysm, frames, count, sensors=None, each=None, flush_at=None):
+        """count frames through track_stereo and a flush (and one before
+        frame flush_at, where phase 5's clock starts): the K1 launches."""
+        pose_optimization_cuda.launches = 0
+        for i in range(count):
+            if i == flush_at:
+                sysm.flush()
+            sd = None if sensors is None else SensorData(**sensors[i])
+            tel = sysm.track_stereo(frames[i, 0], frames[i, 1], FRAME_DT * i, frame_id=i,
+                                    sensor_data=sd)
+            if each is not None:
+                each(i, tel)
+        sysm.flush()
+        return pose_optimization_cuda.launches
+
+    def log_rows(name, tr, idx, errs):
+        err_of = dict(zip(idx.tolist(), errs))
+        for t in tr.telemetry:
+            e = err_of.get(t.frame_id)
+            log(f"  {name} frame {t.frame_id}: {t.state} motion {t.n_motion} inliers "
+                f"{t.n_inliers} kf {t.kf_inserted} seeded {t.n_seeded} "
+                f"t {'-' if e is None else format(e, '.6f')} m "
+                f"{ {k: v for k, v in t.mapper_stats.items() if k != 'counters'} or ''}")
+
+    # ---- 6a: a blackout, sync then async twice
+    dark = synth.blackout(pairs, *DARK)
+    recovery = DARK[1]                  # the first rendered frame after it
+
+    def check_blackout(name, tr, launches):
+        tels = tr.telemetry
+        states = [t.state for t in tels]
+        maps = tr.ms.maps
+        n_maps = int(maps.n_maps)
+        idx, ate, errs = trajectory_errors(tr, poses)
+        log_rows(name, tr, idx, errs)
+        before = idx < DARK[0]
+        ref_before = int(tr.traj.ref_kf[int(before.sum()) - 1])
+        kf_after = [t for t in tels if t.frame_id > recovery and t.kf_inserted >= 0]
+        worst = int(np.argmax(errs))
+        log(f"phase 6a {name}: {len(tels)} rows, {len(idx)} trajectory poses, n_maps {n_maps}, "
+            f"sub-map registered {bool(maps.registered[1])} tie_kf {int(maps.tie_kf[1])} "
+            f"(last reference keyframe before the loss {ref_before}), "
+            f"{sum(t.kf_inserted >= 0 for t in tels)} keyframes, {len(kf_after)} after the "
+            f"recovery, local BA on the prior path {tr.mapper.n_prior_ba} times, ATE "
+            f"{ate:.6f} m, worst frame {int(idx[worst])} at {errs[worst]:.6f} m, K1 launches "
+            f"{launches}, expected {expected_launches(tr)}")
+        gate(f"6a {name}: REINITIALIZE entered, a row carries >REINIT_OK at frame {recovery}",
+             any(s.startswith("REINITIALIZE") for s in states)
+             and states[recovery] == "REINITIALIZE>REINIT_OK"
+             and sum(">REINIT_OK" in s for s in states) == 1)
+        gate(f"6a {name}: no sub-map left over from the blank frames (n_maps == 2)",
+             n_maps == 2)
+        gate(f"6a {name}: the sub-map is registered, tie_kf is the last reference keyframe "
+             "before the loss", bool(maps.registered[1]) and int(maps.parent[1]) == 0
+             and int(maps.tie_kf[1]) == ref_before >= 0)
+        gate(f"6a {name}: {len(tels)} rows in frame order; every frame from {recovery} to "
+             f"{n - 1} tracked, state NORMAL",
+             [t.frame_id for t in tels] == list(range(n)) and tr.state == State.NORMAL
+             and all(tracked_row(t) for t in tels[recovery + 1:])
+             and list(idx) == [i for i in range(n) if not DARK[0] <= i < DARK[1]])
+        gate(f"6a {name}: local BA took the prior path on each of the {len(kf_after)} "
+             "keyframes after the recovery, on none before",
+             tr.mapper.n_prior_ba == len(kf_after) > 0 and tr._has_priors)
+        gate(f"6a {name}: K1 launches {launches} == {expected_launches(tr)} from the telemetry",
+             launches == expected_launches(tr))
+        gate(f"6a {name}: ATE < {MAX_ATE_BLACKOUT} m and every tracked frame < "
+             f"{MAX_T_BLACKOUT} m", ate < MAX_ATE_BLACKOUT and max(errs) < MAX_T_BLACKOUT)
+
+    slot_priors = mapper_mod._slot_priors
+
+    def spying_on_slot_priors(seen, keep_first):
+        """mapper._slot_priors recording, per call, whether a tiepoint edge
+        lies in the window, and holding one call's inputs (the first or the
+        last) as a BA problem for 6d."""
+        def spy(ms, sensors, opt_info, kf_of_slot, slot_used):
+            pr = slot_priors(ms, sensors, opt_info, kf_of_slot, slot_used)
+            seen["tie"].append(pr is not None and bool(pr.tie_valid.any()))
+            if not (keep_first and "ms" in seen):
+                seen.update(ms=ms, kf_id=int(ms.next_kf) - 1, sensors=sensors,
+                            opt_info=opt_info)
+            return pr
+        return spy
+
+    def time_integrate(tracker):
+        """Wrap the tracker's integrate_keyframe with a synchronised clock:
+        returns the list it fills with (keyframe id, ms, took the prior path)."""
+        integrate, rows = tracker.mapper.integrate_keyframe, []
+
+        def timed_integrate(ms, kf_id, **kw):
+            before = tracker.mapper.n_prior_ba
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = integrate(ms, kf_id, **kw)
+            torch.cuda.synchronize()
+            rows.append((int(kf_id), 1e3 * (time.perf_counter() - t),
+                         tracker.mapper.n_prior_ba > before))
+            return out
+
+        tracker.mapper.integrate_keyframe = timed_integrate
+        return rows
+
+    sysm = make_system(cam, cfg)
+    tr = sysm.trackers["SLAM"]
+    counted, counted_plain = [], []
+    held = {"tie": []}
+    mapper_ms_a = time_integrate(tr)
+    mapper_mod._slot_priors = spying_on_slot_priors(held, keep_first=True)
+    try:
+        pose_optimization_cuda.launches = 0
+        for i in range(n):
+            tels = []
+            feed = lambda: tels.append(
+                sysm.track_stereo(dark[i, 0], dark[i, 1], FRAME_DT * i, frame_id=i))
+            if N_WARM <= i < N_SYNC_COUNT:       # before the blackout: no priors
+                sites = sync_sites(feed)
+                counted_plain.append((tels[0].kf_inserted >= 0, sites))
+            elif i >= n - N_PRIOR_SYNC_COUNT:
+                counted.append(sync_sites(feed))
+            else:
+                feed()
+        sysm.flush()
+        launches = pose_optimization_cuda.launches
+    finally:
+        mapper_mod._slot_priors = slot_priors
+    total += launches
+    check_blackout("sync", tr, launches)
+    log(f"phase 6a sync: the tiepoint edge lay in local BA's window on {sum(held['tie'])} of "
+        f"{len(held['tie'])} prior-path jobs")
+    gate("6a sync: every prior-path job asked for the window's priors",
+         len(held["tie"]) == tr.mapper.n_prior_ba)
+    log_sync_calls("phase 6a (before the blackout, no priors)", "sync", counted_plain)
+
+    runs = []
+    for _ in range(2):
+        sysm = make_system(cam, cfg, async_tracking=True, commit_lag=2)
+        launches = run(sysm, dark, n, flush_at=N_WARM)
+        runs.append((sysm.trackers["SLAM"], launches))
+    total += runs[0][1]
+    check_blackout("async", *runs[0])
+    lines = [frame_lines(t) for t, _ in runs]
+    gate("6a async: the loss shows at commit time (NORMAL>LOST on the first blank frame)",
+         runs[0][0].telemetry[DARK[0]].state == "NORMAL>LOST")
+    gate("6a async: two runs print identical frame lines",
+         lines[0] == lines[1] and runs[0][1] == runs[1][1])
+    first_diff = [next((i for i, (a, b) in enumerate(zip(mine, theirs)) if a != b), None)
+                  for mine, theirs in zip(lines[0], async_lines5)]
+    log(f"phase 6a async against phase 5's async run: first differing row {first_diff[0]}, "
+        f"first differing pose {first_diff[1]}"
+        + "".join(f"\n  {x}" for k in (0, 1) if first_diff[k] is not None
+                  for x in (lines[0][k][first_diff[k]], async_lines5[k][first_diff[k]])))
+    gate(f"6a async: up to the blackout the lines are phase 5's async run's ({DARK[0]} rows "
+         "and poses)", lines[0][0][:DARK[0]] == async_lines5[0][:DARK[0]]
+         and lines[0][1][:DARK[0]] == async_lines5[1][:DARK[0]])
+
+    # ---- 6b: forced loss every RESET_INTERVAL frames, from the config
+    sysm = make_system(cam, cfg, camera_kw=dict(tracking=TrackingParams(
+        normal=NormalStateParams(reset_interval=RESET_INTERVAL))))
+    launches = run(sysm, pairs, N_FORCED)
+    total += launches
+    tr = sysm.trackers["SLAM"]
+    idx, ate, errs = trajectory_errors(tr, poses)
+    log_rows("6b", tr, idx, errs)
+    n_maps = int(tr.ms.maps.n_maps)
+    forced = [t.frame_id for t in tr.telemetry if "FORCED_LOSS" in t.state]
+    in_traj = [t.frame_id for t in tr.telemetry
+               if tracked_row(t) or t.state in ("INITIALIZE", "REINITIALIZE>REINIT_OK")]
+    log(f"phase 6b: reset_interval {tr.reset_interval}, forced losses at frames {forced}, "
+        f"n_maps {n_maps}, registered {tr.ms.maps.registered[:n_maps].tolist()}, tie_kf "
+        f"{tr.ms.maps.tie_kf[:n_maps].tolist()}, state {tr.state.name}, {len(idx)} trajectory "
+        f"poses, ATE {ate:.6f} m, worst {max(errs):.6f} m, local BA on the prior path "
+        f"{tr.mapper.n_prior_ba} times, K1 launches {launches}")
+    gate(f"6b: reset_interval {RESET_INTERVAL} from the config forces a loss every "
+         f"{RESET_INTERVAL} frames", tr.reset_interval == RESET_INTERVAL
+         and forced == list(range(RESET_INTERVAL - 1, N_FORCED, RESET_INTERVAL)))
+    gate("6b: at least 3 maps, every sub-map registered with a tiepoint",
+         n_maps >= 3 and bool(tr.ms.maps.registered[1:n_maps].all())
+         and bool((tr.ms.maps.tie_kf[1:n_maps] >= 0).all()))
+    gate("6b: final state NORMAL or POSTINIT", tr.state in (State.NORMAL, State.POSTINIT))
+    gate("6b: a trajectory row for every tracked frame, all finite",
+         list(idx) == in_traj and len(idx) == N_FORCED - len(forced) and np.isfinite(ate))
+    gate(f"6b: K1 launches {launches} == {expected_launches(tr)} from the telemetry",
+         launches == expected_launches(tr))
+
+    # ---- 6c: sensor readings on every frame
+    opt = OptimizerInfo(**SENSOR_WEIGHTS)
+    sensors = synth.render_sensors(poses, seed=0, gps_sigma=GPS_SIGMA)
+    sysm = make_system(cam, cfg, optimizer=opt)
+    tr = sysm.trackers["SLAM"]
+    active_from, resume = {}, {}
+    mapper_ms_c = time_integrate(tr)
+
+    def each(i, tel):
+        n_fix = int(tr.sensors.gps_valid.sum())
+        if n_fix <= sensor_fusion.MIN_GPS_FIXES + 1 and n_fix not in active_from:
+            pr = sensor_fusion.build_pose_priors(tr.ms, tr.sensors, opt)
+            active_from[n_fix] = 0 if pr is None else int(pr.gps_valid.sum())
+        if i == CHECKPOINT_FRAME:
+            resume.update(path=os.path.join(tmp, "sensors.npz"),
+                          sensors=[t.clone() for t in tr.sensors])
+            sysm.save_checkpoint(resume["path"])
+        if i == CHECKPOINT_FRAME + 1:
+            resume.update(tel=tel, Tcw=tr.last_Tcw.clone())
+
+    held_c = {"tie": []}
+    mapper_mod._slot_priors = spying_on_slot_priors(held_c, keep_first=False)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            launches = run(sysm, pairs, n, sensors, each)
+            resumed = make_system(cam, cfg, optimizer=opt)
+            resumed.load_checkpoint(resume["path"])
+    finally:
+        mapper_mod._slot_priors = slot_priors
+    total += launches
+    rt = resumed.trackers["SLAM"]
+    arena_ok = all(torch.equal(a, b) for a, b in zip(rt.sensors, resume["sensors"]))
+    i = CHECKPOINT_FRAME + 1
+    again = resumed.track_stereo(pairs[i, 0], pairs[i, 1], FRAME_DT * i,
+                                 sensor_data=SensorData(**sensors[i]))
+    idx, ate, errs = trajectory_errors(tr, poses)
+    log_rows("6c", tr, idx, errs)
+    pr = sensor_fusion.build_pose_priors(tr.ms, tr.sensors, opt)
+    cost = float(priors.prior_cost(tr.ms.kf.Tcw, pr))
+    n_kf = sum(t.kf_inserted >= 0 for t in tr.telemetry)
+    log(f"phase 6c: weights {SENSOR_WEIGHTS}, GPS sigma {GPS_SIGMA}: {n_kf} keyframes, "
+        f"{int(tr.sensors.gps_valid.sum())} with a fix; GPS priors by fixes in the arena "
+        f"{active_from}; prior cost over the arena {cost:.6f} (GPS rows "
+        f"{int(pr.gps_valid.sum())}, IMU {int(pr.imu_valid.sum())}, depth "
+        f"{int(pr.depth_valid.sum())}); ATE {ate:.6f} m, worst {max(errs):.6f} m; without "
+        f"sensors (phase 4) ATE {tracked['ate']:.6f} m; local BA on the prior path "
+        f"{tr.mapper.n_prior_ba} times; K1 launches {launches}")
+    gate(f"6c: every frame tracked, state NORMAL, a reading on each of the {n_kf} keyframes",
+         tr.state == State.NORMAL and list(idx) == list(range(n))
+         and int(tr.sensors.gps_valid.sum()) == int(tr.sensors.depth_valid.sum()) == n_kf)
+    gate(f"6c: the GPS prior is active from {sensor_fusion.MIN_GPS_FIXES} keyframes with a "
+         "fix on, not before",
+         all((k >= sensor_fusion.MIN_GPS_FIXES) == (v > 0) for k, v in active_from.items())
+         and max(active_from) > sensor_fusion.MIN_GPS_FIXES > min(active_from))
+    gate("6c: the prior cost is finite and every local BA took the prior path",
+         np.isfinite(cost) and tr.mapper.n_prior_ba == sum(
+             "ba_cost" in t.mapper_stats for t in tr.telemetry) > 0)
+    gate(f"6c: ATE {ate:.6f} m no more than {MAX_ATE_OVER_NO_SENSORS} m above the run "
+         f"without sensors ({tracked['ate']:.6f} m), every frame < {MAX_T_TRACK} m",
+         ate < tracked["ate"] + MAX_ATE_OVER_NO_SENSORS and max(errs) < MAX_T_TRACK)
+    gate(f"6c: K1 launches {launches} == {expected_launches(tr)} from the telemetry",
+         launches == expected_launches(tr))
+    gate(f"6c: the checkpoint of frame {CHECKPOINT_FRAME} resumes with its sensor arena to "
+         "the uninterrupted run's next row and pose",
+         arena_ok and rt._has_priors and again == resume["tel"]
+         and torch.equal(rt.last_Tcw, resume["Tcw"]))
+
+    # ms of build_pose_priors (host code over fetched arrays)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(10):
+        sensor_fusion.build_pose_priors(tr.ms, tr.sensors, opt)
+    torch.cuda.synchronize()
+    build_ms = 1e2 * (time.perf_counter() - t)
+
+    # ---- 6d: CG against dense. "sensors" is the window the system built for
+    # 6c's last keyframe, solved by the whole two-phase schedule. "tiepoint"
+    # is constructed (no window the system builds holds a tiepoint edge):
+    # N_TIE_ITERS robust iterations, to run the edge's coupling through both
+    # solvers on the card
+    def problem_of(h, anchor_tie: bool):
+        """The local-BA problem of a held _slot_priors call. With
+        anchor_tie it is changed: the parent's tie keyframe of sub-map 1
+        takes a free slot as a fixed pose and the sub-map's origin is let
+        move, so that the tiepoint edge, at weight TIE_INFO_6D, is what
+        holds the window."""
+        prob, kf_of_slot, slot_used, *_ = mapper_mod._gather_local_ba(
+            h["ms"], h["kf_id"], cam, 16, 2048, cfg.n_levels, cfg.scale_factor)
+        if anchor_tie:
+            tie_a, tie_b, _, tie_valid = sensor_fusion.build_tiepoint_edges(h["ms"])
+            if not tie_valid[1]:
+                return None, slot_used
+            free = int(torch.nonzero(~slot_used)[0])
+            origin = (kf_of_slot == int(tie_b[1])) & slot_used
+            kf_of_slot = kf_of_slot.clone()
+            kf_of_slot[free] = int(tie_a[1])
+            slot_used = slot_used.clone()
+            slot_used[free] = True
+            Tcw = prob.kf_Tcw.clone()
+            Tcw[free] = h["ms"].kf.Tcw[int(tie_a[1])]
+            prob = prob._replace(kf_Tcw=Tcw, kf_fixed=prob.kf_fixed & ~origin)
+        opt_info = OptimizerInfo(tiepoint_info=TIE_INFO_6D) if anchor_tie else h["opt_info"]
+        return prob._replace(priors=slot_priors(
+            h["ms"], h["sensors"], opt_info, kf_of_slot, slot_used)), slot_used
+
+    def first_step_apart(prob):
+        """One linearization of prob at its start, the pose step by each
+        solver: (max|d_cg - d_dense|, max|d_dense|)."""
+        lam = torch.full((), 1e-4, device=prob.kf_Tcw.device)
+        K = prob.kf_Tcw.shape[0]
+        Hpp, b_pose, Y, y, _, _, _, kf_idx = ba._linearize_factors(
+            prob, prob.kf_Tcw, prob.lm_pos, lam, prob.obs.valid, True)
+        Hd, b_pr, Hab = priors.linearize_priors_blocks(prob.kf_Tcw, prob.priors)
+        Hpp, b_pose = Hpp + Hd, b_pose + b_pr
+        S_red, b_red = ba._schur_reduce_dense(Y, y, kf_idx, K, 256)
+        S_red = S_red - priors.tie_offdiag_dense(prob.priors, Hab, K, Hpp.dtype)
+        dense = ba._solve_poses(Hpp, b_pose, S_red, b_red, prob.kf_fixed, lam)
+        cg = ba._solve_poses_cg(Hpp, b_pose, ba._reduced_rhs(Y, y, kf_idx, K), Y, kf_idx,
+                                prob.kf_fixed, lam, priors=prob.priors, Hab=Hab)
+        return float((cg - dense).abs().max()), float(dense.abs().max())
+
+    def solve(prob, solver, n_iters=None):
+        """n_iters robust iterations, or the whole two-phase schedule."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if n_iters is None:
+            res = ba.local_ba_two_phase(prob, chunk=256, solver=solver)
+        else:
+            res = ba.bundle_adjustment(prob, n_iters=n_iters, huber=True, chunk=256,
+                                       solver=solver)
+        torch.cuda.synchronize()
+        return res, 1e3 * (time.perf_counter() - t)
+
+    def apart(cg, dense):
+        return (abs(float(cg.cost) - float(dense.cost)) / float(dense.cost),
+                float((cg.kf_Tcw - dense.kf_Tcw).abs().max()))
+
+    for name, h, anchor in (("sensors", held_c, False), ("tiepoint (constructed)", held, True)):
+        prob, slot_used = problem_of(h, anchor) if "ms" in h else (None, None)
+        pr = None if prob is None else prob.priors
+        active = pr is not None and bool(
+            pr.tie_valid.any() if anchor else (pr.gps_valid.any() and pr.imu_valid.any()
+                                               and pr.depth_valid.any()))
+        gate(f"6d {name}: a local-BA problem with active priors was taken from "
+             f"{'6a' if anchor else '6c'}'s map", active)
+        if not active:
+            continue
+        log(f"phase 6d {name}: local BA of keyframe {h['kf_id']} ({int(slot_used.sum())} slots, "
+            f"{int((~prob.kf_fixed).sum())} free, {int(prob.lm_valid.sum())} landmarks; prior "
+            f"rows: tie {int(pr.tie_valid.sum())} GPS {int(pr.gps_valid.sum())} IMU "
+            f"{int(pr.imu_valid.sum())} depth {int(pr.depth_valid.sum())}, prior cost at the "
+            f"start {float(priors.prior_cost(prob.kf_Tcw, pr)):.6f})")
+        d_step, step = first_step_apart(prob)
+        log(f"phase 6d {name}: the first linearization's pose step: max|d_cg - d_dense| "
+            f"{d_step:.3e} of max|d_dense| {step:.3e}")
+        gate(f"6d {name}: the CG pose step within {CG_STEP_RTOL} relative of the dense one",
+             step > 0 and d_step < CG_STEP_RTOL * step)
+        n_it = N_TIE_ITERS if anchor else N_SHORT_ITERS
+        (dense, ms_d), (cg, ms_c) = solve(prob, "dense", n_it), solve(prob, "cg", n_it)
+        d_cost, d_pose = apart(cg, dense)
+        log(f"phase 6d {name}: {n_it} robust iterations: cost dense "
+            f"{float(dense.cost):.4f} cg {float(cg.cost):.4f} (relative {d_cost:.3e}), max|dT| cg "
+            f"vs dense {d_pose:.3e} (dense moved the poses by up to "
+            f"{float((dense.kf_Tcw - prob.kf_Tcw).abs().max()):.3e}); ms a solve: "
+            + json.dumps({"dense": ms_d, "cg": ms_c}))
+        gate(f"6d {name}: after {n_it} robust iterations CG and dense agree: cost "
+             f"within {CG_COST_RTOL} relative, poses within {CG_POSE_ATOL}",
+             d_cost < CG_COST_RTOL and d_pose < CG_POSE_ATOL
+             and bool(torch.isfinite(cg.kf_Tcw).all()))
+        if anchor:
+            continue
+        (dense, ms_d), (cg, ms_c) = solve(prob, "dense"), solve(prob, "cg")
+        d_cost, d_pose = apart(cg, dense)
+        log(f"phase 6d {name}: the whole two-phase schedule: cost dense {float(dense.cost):.4f} "
+            f"cg {float(cg.cost):.4f} (relative {d_cost:.3e}), max|dT| cg vs dense {d_pose:.3e}, "
+            f"max|dX| {float((cg.lm_pos - dense.lm_pos).abs().max()):.3e} (dense moved the "
+            f"poses by up to {float((dense.kf_Tcw - prob.kf_Tcw).abs().max()):.3e}); ms a "
+            "two-phase solve: " + json.dumps({"dense": ms_d, "cg": ms_c}))
+        gate(f"6d {name}: after the whole schedule CG's cost is finite and no more than "
+             f"{CG_WHOLE_COST_RTOL} relative above the dense solve's",
+             bool(torch.isfinite(cg.kf_Tcw).all()) and np.isfinite(float(cg.cost))
+             and float(cg.cost) < float(dense.cost) * (1 + CG_WHOLE_COST_RTOL))
+
+    # ---- printed, not gated: what the prior path costs. A mapper call grows
+    # dearer as the map fills, so the two kinds are read over the same
+    # keyframes: 6a's sync run before the blackout (no priors) against 6c's
+    # (sensor priors on every local BA), both from the 4th mapper call on
+    def med(rows, lo, hi, prior):
+        v = [ms for k, ms, p in rows if lo <= k < hi and p == prior]
+        return (statistics.median(v) if v else None), len(v)
+
+    log("phase 6 timing: " + json.dumps({
+        f"median_ms_integrate_keyframes_4_to_{DARK[0] - 1}_without_priors_6a":
+            med(mapper_ms_a, 4, DARK[0], False),
+        f"median_ms_integrate_keyframes_4_to_{DARK[0] - 1}_with_sensor_priors_6c":
+            med(mapper_ms_c, 4, DARK[0], True),
+        "median_ms_integrate_after_the_recovery_prior_path_no_active_prior_6a":
+            med(mapper_ms_a, DARK[0], n, True),
+        f"median_ms_integrate_keyframes_{DARK[0]}_on_with_sensor_priors_6c":
+            med(mapper_ms_c, DARK[0], n, True),
+        "ms_build_pose_priors": build_ms,
+    }))
+    rows = counted
+    rep = max(rows, key=lambda s: sum(s.values()))
+    log(f"phase 6 synchronising calls a sync keyframe frame on the prior path (6a, the last "
+        f"{len(rows)} frames): " + json.dumps({
+            "median": statistics.median(sum(s.values()) for s in rows),
+            "max": sum(rep.values()),
+            "sites_new_with_priors": {k: v for k, v in rep.items() if k.startswith(
+                ("slam/sensor_fusion.py", "solver/priors.py", "core/sensordata.py"))
+                or k.startswith("slam/mapper.py")},
+        }))
+    if failed:
+        raise AssertionError("phase 6 failed: " + "; ".join(failed))
     return total
 
 
@@ -947,13 +1487,24 @@ def main() -> int:
     log(card_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
-    phase0()
-    k1 = phase1(dev)
+    took = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        took[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    timed("0", phase0)
+    k1 = timed("1", phase1, dev)
     cam, cfg = camera_and_config()
-    poses, pairs, pts = render_sequence(cam, dev, N_TRACK)
-    launches = phase2(dev, cam, cfg, poses, pairs)
-    tracked = phase4(dev, cam, cfg, poses, pairs)
-    launches += tracked["launches"] + phase5(cam, cfg, poses, pairs, pts, tracked)
+    poses, pairs, pts = timed("render", render_sequence, cam, dev, N_TRACK)
+    launches = timed("2-3", phase2, dev, cam, cfg, poses, pairs)
+    tracked = timed("4", phase4, dev, cam, cfg, poses, pairs)
+    launches5, async_lines = timed("5", phase5, cam, cfg, poses, pairs, pts, tracked)
+    launches += tracked["launches"] + launches5
+    launches += timed("6", phase6, cam, cfg, poses, pairs, tracked, async_lines)
+    log(f"seconds a phase: {json.dumps(took)}")
     log(json.dumps({"kernels": [{
         "name": "pose_opt",
         "route": "cuda",

@@ -1,14 +1,14 @@
 """MapState: fixed-capacity arenas for keyframes, landmarks, associations,
 covisibility and the spanning tree (counterpart of
-``hyslam_tpu/core/mapstate.py``; the sub-map functions ``create_submap``,
+``hyslam_tpu/core/mapstate.py``), with the sub-map tree: ``create_submap``,
 ``register_submap``, ``set_active_map``, ``refresh_tiepoints`` and
-``apply_transform_to_map`` are ROADMAP step 16 and not ported yet).
+``apply_transform_to_map``.
 
 The state is NamedTuples of tensors with the JAX package's shapes and dtypes
 (descriptors as int32 bit-views). Every function keeps the JAX semantics,
 state in and new state out: what it writes it writes into a copy, so the
 caller's state is never mutated. Nothing here reads a value back to the
-host. Scatters follow ``ops/indexing.py``: dropped rows go to a pad row, and
+host but ``refresh_tiepoints``, which walks the map table. Scatters follow ``ops/indexing.py``: dropped rows go to a pad row, and
 of several rows writing one element the last one wins, as on XLA's CPU.
 
 Conventions: keyframe and landmark ids are arena slots (int32), -1 = none;
@@ -81,7 +81,8 @@ class LandmarkArena(NamedTuple):
 
 
 class MapTable(NamedTuple):
-    """Sub-map tree bookkeeping (only read by the ported path)."""
+    """Sub-map tree bookkeeping: a registered child joins its parent's
+    queries (``map_root``), and its tiepoint transform feeds BA."""
 
     parent: torch.Tensor       # [M] int32 parent map id (-1 root)
     registered: torch.Tensor   # [M] bool
@@ -545,3 +546,86 @@ def set_keyframes_bad(ms: MapState, bad_mask: torch.Tensor) -> MapState:
         span_parent=new_par, Tcp=Tcp,
     )
     return ms._replace(kf=kf, lm=lm)
+
+
+# ---------------------------------------------------------------------------
+# sub-map tree
+# ---------------------------------------------------------------------------
+
+def _at(x: torch.Tensor, i, v) -> torch.Tensor:
+    """A copy of x with x[i] = v, i a Python int or a 0-d tensor (written as
+    a 1-element scatter, so a tensor index is not read back)."""
+    dev = x.device
+    iv = (i.reshape(1).long() if isinstance(i, torch.Tensor)
+          else torch.full((1,), int(i), dtype=torch.int64, device=dev))
+    if not isinstance(v, torch.Tensor):
+        v = torch.as_tensor(v)
+    return x.index_put((iv,), v.to(dtype=x.dtype, device=dev)[None])
+
+
+def create_submap(ms: MapState, set_active: bool = True):
+    """Allocate a child of the active map and optionally make it active
+    (Map::createSubMap). Returns (ms, new_map_id), the id a 0-d tensor. The
+    caller keeps the table within MAX_MAPS."""
+    mid = ms.maps.n_maps
+    maps = ms.maps._replace(
+        parent=_at(ms.maps.parent, mid, ms.maps.active),
+        registered=_at(ms.maps.registered, mid, False),
+        n_maps=mid + 1,
+        active=mid.clone() if set_active else ms.maps.active,
+    )
+    return ms._replace(maps=maps), mid
+
+
+def register_submap(ms: MapState, map_id, Tse3_parent=None, tie_kf=-1) -> MapState:
+    """Register a sub-map with its parent: its keyframes and landmarks join
+    the parent's queries (root resolution) and the tiepoint transform feeds
+    BA residuals."""
+    maps = ms.maps._replace(registered=_at(ms.maps.registered, map_id, True))
+    if Tse3_parent is not None:
+        maps = maps._replace(
+            Tse3_parent=_at(maps.Tse3_parent, map_id, Tse3_parent),
+            tie_kf=_at(maps.tie_kf, map_id, tie_kf),
+        )
+    return ms._replace(maps=maps)
+
+
+def set_active_map(ms: MapState, map_id) -> MapState:
+    active = (map_id.to(torch.int32).reshape(()) if isinstance(map_id, torch.Tensor)
+              else torch.full((), int(map_id), dtype=torch.int32,
+                              device=ms.maps.active.device))
+    return ms._replace(maps=ms.maps._replace(active=active))
+
+
+def refresh_tiepoints(ms: MapState) -> MapState:
+    """Re-measure every registered sub-map's tiepoint from the current poses
+    (Tse3_parent = Tcw_origin @ Tcw_tie^-1). For use after a loop closure has
+    re-placed sub-maps: a stale tiepoint prior would drag global BA back.
+    Reads the map table to the host."""
+    maps = ms.maps
+    n = int(maps.n_maps)
+    reg = maps.registered.cpu().numpy()
+    ties = maps.tie_kf.cpu().numpy()
+    origin = (ms.kf.origin & ms.kf.valid).cpu().numpy()
+    kf_map = ms.kf.map_id.cpu().numpy()
+    Tse3 = maps.Tse3_parent
+    for m in range(min(n, MAX_MAPS)):
+        if not reg[m] or ties[m] < 0:
+            continue
+        child = np.nonzero(origin & (kf_map == m))[0]
+        if len(child) == 0:
+            continue
+        T = ms.kf.Tcw[int(child[0])] @ se3.inverse(ms.kf.Tcw[int(ties[m])])
+        Tse3 = _at(Tse3, m, T)
+    return ms._replace(maps=maps._replace(Tse3_parent=Tse3))
+
+
+def apply_transform_to_map(ms: MapState, map_id, T: torch.Tensor) -> MapState:
+    """Rigidly move every keyframe pose and landmark of one sub-map:
+    Tcw' = Tcw @ T^-1, X' = T X."""
+    Tinv = se3.inverse(T)
+    in_map_kf = ms.kf.valid & (ms.kf.map_id == map_id)
+    in_map_lm = ms.lm.valid & (ms.lm.map_id == map_id)
+    new_Tcw = torch.where(in_map_kf[:, None, None], ms.kf.Tcw @ Tinv, ms.kf.Tcw)
+    new_pos = torch.where(in_map_lm[:, None], se3.apply(T, ms.lm.pos), ms.lm.pos)
+    return ms._replace(kf=ms.kf._replace(Tcw=new_Tcw), lm=ms.lm._replace(pos=new_pos))

@@ -5,7 +5,8 @@ rebuilt in the port from the same numpy code, and the map state. These
 functions turn JAX-package arrays, given as numpy (``np.asarray`` of a JAX
 array), into the port's tensors and back: features, cameras, extractor
 configs, landmark tables, whole map states, trajectories, the async loop's
-tracker state, and a whole ``SystemConfig``. Objects are read by field name,
+tracker state, sensor records and arenas, BA's pose priors, and a whole
+``SystemConfig``. Objects are read by field name,
 so nothing here imports the JAX package.
 
 Descriptors travel as the int32 bit-view of the JAX package's uint32 lanes:
@@ -158,6 +159,38 @@ def trajectory_from_numpy(traj, device=None):
 
 def trajectory_to_numpy(traj) -> dict:
     return _tuple_to(traj)
+
+
+def sensor_arena_from_numpy(arena, device=None):
+    """A JAX-package SensorArena (or the dict from ``sensor_arena_to_numpy``)
+    -> the port's on ``device``."""
+    from hyslam_tpu_torch.core.sensordata import SensorArena
+
+    return _tuple_from(SensorArena, arena, device)
+
+
+def sensor_arena_to_numpy(arena) -> dict:
+    return _tuple_to(arena)
+
+
+def sensor_data_from(sd):
+    """A SensorData of either package (plain host numbers, read by field)
+    -> the port's SensorData; ``SensorData(**sd._asdict())`` is the way back."""
+    from hyslam_tpu_torch.core.sensordata import SensorData
+
+    return SensorData(**{k: getattr(sd, k) for k in SensorData._fields})
+
+
+def pose_priors_from_numpy(pr, device=None):
+    """A JAX-package PosePriors (or the dict from ``pose_priors_to_numpy``)
+    -> the port's on ``device``."""
+    from hyslam_tpu_torch.solver.priors import PosePriors
+
+    return _tuple_from(PosePriors, pr, device)
+
+
+def pose_priors_to_numpy(pr) -> dict:
+    return _tuple_to(pr)
 
 
 def dev_track_state_from_numpy(dev, device=None):

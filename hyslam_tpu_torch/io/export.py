@@ -242,11 +242,9 @@ def load_checkpoint(path: str, tracker):
     dev = tracker.device
     tracker.ms = _map_from(z, dev)
     tracker.traj = interop.trajectory_from_numpy(_sub(z, "traj", Trajectory), dev)
-    tracker.sensors = SensorArena(**{
-        k: torch.from_numpy(np.array(v)).to(dev)
-        for k, v in _sub(z, "sensors", SensorArena).items()})
-    # the async loop's host-known flag "local BA needs pose priors": a file
-    # of the JAX package may hold sensor readings or registered sub-maps
+    tracker.sensors = interop.sensor_arena_from_numpy(_sub(z, "sensors", SensorArena), dev)
+    # the async loop's host-known flag "local BA takes the prior path": the
+    # file may hold sensor readings or registered sub-maps
     tracker._has_priors = _has_priors(tracker.ms, tracker.sensors)
     tracker.state = State(int(z["tk.state"]))
     tracker.last_Tcw = torch.from_numpy(np.array(z["tk.last_Tcw"], np.float32)).to(dev)

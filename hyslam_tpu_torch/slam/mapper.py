@@ -1,7 +1,6 @@
 """Mapping jobs: new-keyframe integration, landmark culling, triangulation,
-fusion, local BA, keyframe culling (counterpart of
-``hyslam_tpu/slam/mapper.py``, without the pose-prior path of local BA,
-which is ROADMAP step 16).
+fusion, local BA with and without sensor / tiepoint pose priors, keyframe
+culling (counterpart of ``hyslam_tpu/slam/mapper.py``).
 
 Each job is a batched pass over the map arenas; ``Mapper.integrate_keyframe``
 sequences them as the reference's SetupMandatoryJobs -> SetupOptionalJobs.
@@ -16,6 +15,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from hyslam_tpu_torch.core import mapstate as M
@@ -30,6 +30,7 @@ from hyslam_tpu_torch.geometry import se3
 from hyslam_tpu_torch.geometry.camera import Camera, backproject
 from hyslam_tpu_torch.geometry.triangulation import projection_matrix, triangulate_dlt
 from hyslam_tpu_torch.ops import indexing as ix
+from hyslam_tpu_torch.slam.sensor_fusion import pose_priors_numpy, priors_to_device
 from hyslam_tpu_torch.solver.ba import BAObservations, BAProblem, CamArrays, local_ba_two_phase
 
 
@@ -372,12 +373,45 @@ def _scatter_ba_results(ms: MapState, kf_of_slot, slot_movable, lm_rows, lm_ok,
     return ms._replace(kf=ms.kf._replace(Tcw=Tcw), lm=ms.lm._replace(pos=pos))
 
 
-def _local_ba_noprior(ms: MapState, kf_id: int, cam: Camera, max_local_kf: int,
-                      max_lm: int, n_levels: int, scale_factor: float):
-    """The whole local-BA job without pose priors: gather, two-phase BA,
-    scatter, outlier erasure and stats. Returns (ms, cost)."""
-    prob, kf_of_slot, _, slot_movable, lm_rows, lm_ok = _gather_local_ba(
+def _slot_priors(ms: MapState, sensors, opt_info, kf_of_slot, slot_used):
+    """The full-arena pose priors remapped onto local-BA slots, or None when
+    none is active there. Sensor rows follow their keyframe's slot; a
+    tiepoint edge survives only when both its endpoints hold a slot. Host
+    code: one fetch for the priors' inputs and the slot tables together,
+    one upload of the result."""
+    pr, (idx, used) = pose_priors_numpy(ms, sensors, opt_info,
+                                        extra=(kf_of_slot, slot_used))
+    if pr is None:
+        return None
+    idx = idx.astype(np.int64)
+    out = {k: pr[k][idx] for k in ("gps_pos", "gps_info", "imu_quat", "imu_info",
+                                   "depth", "depth_info")}
+    for k in ("gps_valid", "imu_valid", "depth_valid"):
+        out[k] = pr[k][idx] & used
+    slot_of = np.full((ms.K,), -1, np.int32)
+    slot_of[idx[used]] = np.nonzero(used)[0]
+    ta = slot_of[np.clip(pr["tie_a"], 0, ms.K - 1)]
+    tb = slot_of[np.clip(pr["tie_b"], 0, ms.K - 1)]
+    tie_ok = pr["tie_valid"] & (ta >= 0) & (tb >= 0)
+    out.update(tie_a=np.maximum(ta, 0), tie_b=np.maximum(tb, 0), tie_T=pr["tie_T"],
+               tie_info=pr["tie_info"], tie_valid=tie_ok)
+    if not (out["gps_valid"].any() or out["imu_valid"].any()
+            or out["depth_valid"].any() or tie_ok.any()):
+        return None
+    return priors_to_device(out, ms.kf.Tcw.device)
+
+
+def _local_ba_body(ms: MapState, kf_id: int, cam: Camera, max_local_kf: int,
+                   max_lm: int, n_levels: int, scale_factor: float,
+                   use_priors: bool = False, sensors=None, opt_info=None):
+    """The whole local-BA job: gather the covisibility neighbourhood,
+    two-phase robust BA, scatter, outlier erasure and stats. Returns (ms,
+    cost)."""
+    prob, kf_of_slot, slot_used, slot_movable, lm_rows, lm_ok = _gather_local_ba(
         ms, kf_id, cam, max_local_kf, max_lm, n_levels, scale_factor)
+    if use_priors:
+        prob = prob._replace(
+            priors=_slot_priors(ms, sensors, opt_info, kf_of_slot, slot_used))
     res = local_ba_two_phase(prob, chunk=256)
     ms = _scatter_ba_results(ms, kf_of_slot, slot_movable, lm_rows, lm_ok,
                              res.kf_Tcw, res.lm_pos)
@@ -386,6 +420,25 @@ def _local_ba_noprior(ms: MapState, kf_id: int, cam: Camera, max_local_kf: int,
     ms = M.erase_observations(ms, lm_rows[:, None].expand(out.shape).reshape(-1),
                               slots.reshape(-1), out.reshape(-1))
     return M.update_landmark_stats(ms), res.cost
+
+
+def _local_ba_noprior(ms: MapState, kf_id: int, cam: Camera, max_local_kf: int,
+                      max_lm: int, n_levels: int, scale_factor: float):
+    """Local BA without pose priors, the common case of no sensor reading
+    and no registered sub-map: nothing is read back to the host."""
+    return _local_ba_body(ms, kf_id, cam, max_local_kf, max_lm, n_levels, scale_factor)
+
+
+def local_bundle_adjustment(ms: MapState, kf_id: int, cam: Camera,
+                            max_local_kf: int = 32, max_lm: int = 4096,
+                            sensors=None, opt_info=None, n_levels: int = 8,
+                            scale_factor: float = 1.2):
+    """LocalBundleAdjustment::Run: two-phase robust BA over the covisibility
+    neighbourhood; outlier observations are erased from the map afterwards.
+    The sensor and sub-map tiepoint pose priors of ``sensors`` / ``opt_info``
+    join the problem where any is active (host work and one fetch a call)."""
+    return _local_ba_body(ms, kf_id, cam, max_local_kf, max_lm, n_levels,
+                          scale_factor, True, sensors, opt_info)
 
 
 # ---------------------------------------------------------------------------
@@ -484,9 +537,10 @@ class Mapper:
         self.n_levels = n_levels
         self.scale_factor = scale_factor
         self.kf_count = 0
+        self.n_prior_ba = 0   # local-BA jobs that took the prior path
 
     def integrate_keyframe(self, ms: MapState, kf_id: int, sensors=None,
-                           fetch_stats: bool = True,
+                           opt_info=None, fetch_stats: bool = True,
                            has_priors: bool | None = None):
         """Run the jobs for keyframe kf_id. Returns (ms, stats): the job
         counters read back in one transfer, and ba_cost when local BA ran.
@@ -494,8 +548,9 @@ class Mapper:
         ride back as a tensor under stats["counters"] (the async tracking
         loop's path). ``has_priors`` lets the caller supply the host-known
         flag "a sensor reading or a registered sub-map exists" instead of
-        the read of the device check; where it is true local BA would need
-        pose priors (ROADMAP step 16) and this raises NotImplementedError."""
+        the read of the device check; where it is true local BA takes the
+        prior path (``sensors`` and the weights of ``opt_info``), counted in
+        ``self.n_prior_ba``."""
         kf_id = int(kf_id)
         stats = {}
         p = self.params
@@ -504,13 +559,16 @@ class Mapper:
         if self.kf_count > 2:
             if has_priors is None:
                 has_priors = _has_priors(ms, sensors)
-            if has_priors:
-                raise NotImplementedError(
-                    "local BA with sensor / sub-map pose priors is ROADMAP "
-                    "step 16, not ported")
             # 16 local keyframes / 2048 landmarks, as the JAX package's caps
-            ms, cost = _local_ba_noprior(ms, kf_id, self.cam, 16, 2048,
-                                         self.n_levels, self.scale_factor)
+            if has_priors:
+                ms, cost = local_bundle_adjustment(
+                    ms, kf_id, self.cam, max_local_kf=16, max_lm=2048, sensors=sensors,
+                    opt_info=opt_info, n_levels=self.n_levels,
+                    scale_factor=self.scale_factor)
+                self.n_prior_ba += 1
+            else:
+                ms, cost = _local_ba_noprior(ms, kf_id, self.cam, 16, 2048,
+                                             self.n_levels, self.scale_factor)
             if not self.is_mono:
                 ms, n_cull = cull_keyframes(ms, kf_id, self.cam, p)
                 counters = torch.cat([counters, n_cull[None]])

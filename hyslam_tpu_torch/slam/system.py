@@ -20,7 +20,10 @@ callers pass ``False``; steps 14-15), periodic global BA
 (``optimizer.realtime=False``, step 15), the threaded pipeline
 (``pipelined=True``, step 19), monocular cameras and ``track_monocular``
 (step 13), more than one camera, ``place_imaging_frame`` and
-``run_imaging_bundle_adjustment`` (step 17), ``sensor_data`` (step 16). With
+``run_imaging_bundle_adjustment`` (step 17). Every ``track_*`` entry takes
+``sensor_data`` (a ``core.sensordata.SensorData``: GPS, IMU orientation,
+pressure depth), which rides the frame to its keyframe and feeds local BA's
+pose priors under the weights of ``config.optimizer``. With
 ``run_data_dir`` set the TSV logs are written; the periodic annotated frame
 dumps need ``viz/`` (step 19) and are not.
 """
@@ -137,7 +140,9 @@ class System:
                      camera: str = "SLAM", frame_id: int | None = None,
                      sensor_data=None):
         """Full stereo entry: grayscale, extraction of both images as one
-        batch of two, stereo match + sub-pixel refinement, then track."""
+        batch of two, stereo match + sub-pixel refinement, then track.
+        ``sensor_data`` attaches GPS / IMU / depth readings to a keyframe
+        made from this frame."""
         cc = self.config.cameras[camera]
         cam = self.cameras[camera]
         il = self._image(img_left, cam.scale)
@@ -192,20 +197,20 @@ class System:
         in flight (its row appears in the tracker's telemetry at commit)."""
         if self._shutdown:
             raise RuntimeError("System is shut down")
-        if sensor_data is not None:
-            raise NotImplementedError(
-                "sensor readings on keyframes feed pose priors, ROADMAP step 16")
         if frame_id is None:
             frame_id = self._frame_counter
         self._frame_counter += 1
         if self.config.async_tracking:
-            return self.trackers[camera].track_async(feats, timestamp, frame_id)
-        return self._track_features_inline(feats, timestamp, camera, frame_id)
+            return self.trackers[camera].track_async(feats, timestamp, frame_id,
+                                                     sensor_data=sensor_data)
+        return self._track_features_inline(feats, timestamp, camera, frame_id,
+                                           sensor_data)
 
-    def _track_features_inline(self, feats, timestamp, camera, frame_id):
+    def _track_features_inline(self, feats, timestamp, camera, frame_id,
+                               sensor_data=None):
         """One frame through the state machine, and its telemetry rows."""
         tracker = self.trackers[camera]
-        tel = tracker.track(feats, timestamp, frame_id)
+        tel = tracker.track(feats, timestamp, frame_id, sensor_data=sensor_data)
         if self._tracking_log is not None:
             # the live landmark count, not the allocation cursor: with slot
             # recycling next_lm can pass both the live size and the capacity

@@ -3,6 +3,10 @@
 and async).
 
   INITIALIZE -> POSTINIT (5 forced-keyframe frames) -> NORMAL
+  NORMAL --loss--> REINITIALIZE: a new registered sub-map at the
+                   velocity-extrapolated pose, tied to the last reference
+                   keyframe by a tiepoint that BA carries as a pose prior
+  NULL: frames of an accessory camera while the SLAM camera is lost
 
 A host-side state machine sequences the strategies, the keyframe policy and
 the mapper. ``track`` reads the packed decision counters back once per
@@ -12,10 +16,14 @@ tensors), starts a non-blocking fetch of the counters, and commits the host
 decisions (loss, keyframe policy, telemetry) ``commit_lag`` frames later, so
 the host never waits for the frame it has just dispatched.
 
+A frame's ``sensor_data`` (GPS, IMU orientation, pressure depth) is attached
+to the keyframe made from it and feeds local BA's pose priors, weighted by
+``opt_info``. ``reset_interval`` forces a loss every N frames (fault
+injection).
+
 Not ported yet, each raising NotImplementedError where it would be entered:
-monocular tracking (ROADMAP step 13), RELOCALIZE (step 14), REINITIALIZE
-after a loss, forced-loss fault injection and sensor readings (step 16), the
-threaded pipeline's ``mapping_status`` hook (step 19).
+monocular tracking (ROADMAP step 13), RELOCALIZE (step 14), the threaded
+pipeline's ``mapping_status`` hook (step 19).
 """
 
 from __future__ import annotations
@@ -25,13 +33,14 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Optional
 
+import numpy as np
 import torch
 
 from hyslam_tpu_torch.core import mapstate as M
 from hyslam_tpu_torch.core import trajectory as TJ
 from hyslam_tpu_torch.core.frame import FrameFeatures
 from hyslam_tpu_torch.core.mapstate import MapCaps, MapState, empty_map_state
-from hyslam_tpu_torch.core.sensordata import empty_sensor_arena
+from hyslam_tpu_torch.core.sensordata import empty_sensor_arena, set_sensor
 from hyslam_tpu_torch.device import default_device
 from hyslam_tpu_torch.geometry import se3
 from hyslam_tpu_torch.geometry.camera import Camera
@@ -68,8 +77,6 @@ POSTINIT_FRAMES = 5          # TrackingStatePostInitialization hold
 
 _NOT_PORTED = {
     State.RELOCALIZE: "RELOCALIZE (place recognition) is ROADMAP step 14",
-    State.REINITIALIZE: "REINITIALIZE (a new registered sub-map) is ROADMAP step 16",
-    State.NULL: "the NULL state of imaging cameras is ROADMAP step 17",
     State.NO_IMAGES_YET: "NO_IMAGES_YET is not a tracking state",
 }
 
@@ -88,6 +95,7 @@ class _Pending:
     fetched: object            # torch.cuda.Event after the fetch, or None
     Tcw: torch.Tensor          # [4,4]
     lm_id: torch.Tensor        # [F]
+    sensor_data: object = None  # SensorData riding the frame to its keyframe
 
 
 @dataclass
@@ -111,8 +119,9 @@ class Tracker:
     caps: MapCaps = MapCaps()
     is_mono: bool = False         # monocular: ROADMAP step 13
     policy: KeyFramePolicyParams = field(default_factory=KeyFramePolicyParams)
-    reset_interval: int = 0       # forced-loss fault injection: step 16
-    opt_info: object = None       # sensor-prior weights, held for step 16
+    reset_interval: int = 0       # forced-loss fault injection: every N frames
+    opt_info: object = None       # OptimizerInfo: the weights of the sensor
+                                  # and tiepoint priors in local BA
     n_levels: int = 8             # pyramid model of this camera's extractor
     scale_factor: float = 1.2
     params: TrackingParams = field(default_factory=TrackingParams)
@@ -135,9 +144,10 @@ class Tracker:
         if self.is_mono:
             raise NotImplementedError(
                 "monocular tracking (mono initializer) is ROADMAP step 13, not ported")
-        if self.reset_interval or self.params.normal.reset_interval > 0:
-            raise NotImplementedError(
-                "forced-loss fault injection enters REINITIALIZE, ROADMAP step 16")
+        # fault injection configured through the params tree; the explicit
+        # field wins when set
+        if not self.reset_interval and self.params.normal.reset_interval > 0:
+            self.reset_interval = self.params.normal.reset_interval
         if self.mapping_status is not None:
             raise NotImplementedError(
                 "mapping_status is the threaded pipeline's hook, ROADMAP step 19")
@@ -145,6 +155,7 @@ class Tracker:
                        else default_device())
         self.ms: MapState = empty_map_state(self.caps, device=self.device)
         self.sensors = empty_sensor_arena(self.caps.K, device=self.device)
+        self._pending_sensor = None   # SensorData of the current frame
         self.traj = TJ.empty_trajectory(device=self.device)
         self.mapper = Mapper(self.cam, params=self.mapper_params,
                              n_levels=self.n_levels,
@@ -169,7 +180,7 @@ class Tracker:
         self._kf_mirror = 0       # host mirror of ms.next_kf (exact: every
                                   # allocation is an event the host sees)
         self._has_priors = False  # sensor readings / registered sub-maps
-                                  # exist (step 16 sets it)
+                                  # exist: local BA takes the prior path
         self._fetch_free: list = []   # pinned (buffer, event) pairs not in use
 
     # -- public -------------------------------------------------------------
@@ -177,18 +188,20 @@ class Tracker:
     def track(self, feats: FrameFeatures, timestamp: float, frame_id: int,
               sensor_data=None) -> TrackerTelemetry:
         """Process one frame (features on the tracker's device); returns its
-        TrackerTelemetry."""
-        if sensor_data is not None:
-            raise NotImplementedError(
-                "sensor readings on keyframes feed pose priors, ROADMAP step 16")
-        if self.state not in (State.INITIALIZE, State.POSTINIT, State.NORMAL):
+        TrackerTelemetry. ``sensor_data`` (core.sensordata.SensorData) is
+        attached to the keyframe if one is made from this frame."""
+        if self.state in _NOT_PORTED:
             raise NotImplementedError(_NOT_PORTED[self.state])
         tel = TrackerTelemetry(frame_id=frame_id, state=self.state.name)
         self.n_frames += 1
+        self._pending_sensor = sensor_data
         if self.state == State.INITIALIZE:
             self._do_initialize(feats, timestamp, frame_id, tel)
-        else:
+        elif self.state in (State.NORMAL, State.POSTINIT):
             self._do_normal(feats, timestamp, frame_id, tel)
+        elif self.state == State.REINITIALIZE:
+            self._do_reinitialize(feats, timestamp, frame_id, tel)
+        # State.NULL: the frame is counted and nothing else
         self.telemetry.append(tel)
         return tel
 
@@ -198,16 +211,46 @@ class Tracker:
 
     # -- states -------------------------------------------------------------
 
-    def _do_initialize(self, feats, timestamp, frame_id, tel):
-        """Stereo initialization at the origin; on too little depth the map
-        stays as it was and the state stays INITIALIZE."""
-        ms, kf_id, n = stereo_initialize(self.ms, feats, self.cam, timestamp,
-                                         frame_id, self.cam_id)
+    def _do_initialize(self, feats, timestamp, frame_id, tel, Tcw0=None,
+                       as_submap=False, tie_kf=-1):
+        """Stereo initialization at Tcw0 (default the origin), with
+        ``as_submap`` in a new sub-map that is registered at once, tied to
+        keyframe ``tie_kf``. On too little depth the map (a sub-map opened
+        here included) stays as it was and so does the state."""
+        if as_submap and int(self.ms.maps.n_maps) >= M.MAX_MAPS:
+            # the sub-map table is full: re-initialize within the active map
+            # (a map id past MAX_MAPS would poison every walk of the table)
+            as_submap = False
+        ms, submap, maps_before = self.ms, None, None
+        if as_submap:
+            # create_submap writes the map table only: a copy of it is what a
+            # failed initialization goes back to, whether the state is
+            # updated by copy or in place (else every blank frame in
+            # REINITIALIZE would leak an empty sub-map)
+            maps_before = M.MapTable(*(t.clone() for t in ms.maps))
+            ms, submap = M.create_submap(ms)
+        ms, kf_id, n = stereo_initialize(ms, feats, self.cam, timestamp,
+                                         frame_id, self.cam_id, Tcw0=Tcw0)
         if kf_id < 0:
+            if as_submap:
+                self.ms = self.ms._replace(maps=maps_before)
             return
+        if as_submap:
+            # the tiepoint measurement Tse3 = Tcw_origin @ Tcw_parent^-1, so
+            # that pose_this = Tse3 pose_parent: on the host, with numpy's
+            # float32 inverse of the 4x4, as the JAX package computes it
+            if tie_kf >= 0:
+                Tcw_child, Tcw_par = (t.cpu().numpy() for t in
+                                      (ms.kf.Tcw[kf_id], ms.kf.Tcw[tie_kf]))
+                tse3 = (Tcw_child @ np.linalg.inv(Tcw_par)).astype(np.float32)
+            else:
+                tse3 = np.eye(4, dtype=np.float32)
+            ms = M.register_submap(ms, submap, Tse3_parent=torch.from_numpy(tse3),
+                                   tie_kf=tie_kf)
+            self._has_priors = True   # tiepoint edges exist now
         self.ms = ms
         tel.n_seeded = n
-        self.last_Tcw = self.ms.kf.Tcw[kf_id]
+        self.last_Tcw = self.ms.kf.Tcw[kf_id] if Tcw0 is None else Tcw0
         self.ref_kf = kf_id
         self.last_ref_kf = kf_id
         self.last_Tcr = torch.eye(4, dtype=torch.float32, device=self.device)
@@ -219,6 +262,12 @@ class Tracker:
         self.state = State.POSTINIT
         self.postinit_left = POSTINIT_FRAMES
         tel.kf_inserted = kf_id
+        self._attach_sensor(kf_id, self._pending_sensor)
+
+    def _attach_sensor(self, kf_id: int, sensor_data) -> None:
+        if sensor_data is not None:
+            self.sensors = set_sensor(self.sensors, kf_id, sensor_data)
+            self._has_priors = True
 
     def _update_last_frame(self):
         """UpdateLastFrame (Tracking.cpp:249): re-derive the last frame's
@@ -228,6 +277,11 @@ class Tracker:
 
     def _do_normal(self, feats, timestamp, frame_id, tel):
         self._update_last_frame()
+        # fault injection: a forced loss every reset_interval frames
+        if self.reset_interval and self.n_frames % self.reset_interval == 0:
+            self._lose_tracking()
+            tel.state += ">FORCED_LOSS"
+            return
         min_inl = (self.params.normal.thresh_refine_postreloc
                    if self.frames_since_reloc < 30
                    else self.params.normal.thresh_refine)
@@ -246,6 +300,7 @@ class Tracker:
         tel.n_local = n_local
         if not (init_ok and ok):
             self._lose_tracking()
+            return
         tr = TrackResult(Tcw=nf.Tcw, lm_id=nf.lm_id, n_inliers=n_inliers, ok=True)
         self.ref_kf = local_ref_kf
 
@@ -286,8 +341,9 @@ class Tracker:
         ms, n_seeded = seed_close_landmarks(ms, kf_id, self.cam)
         tel.n_seeded = int(n_seeded)
         ms, tel.mapper_stats = self.mapper.integrate_keyframe(
-            ms, kf_id, sensors=self.sensors)
+            ms, kf_id, sensors=self.sensors, opt_info=self.opt_info)
         self.ms = ms
+        self._attach_sensor(kf_id, self._pending_sensor)
         self.last_kf_frame_id = frame_id
         self.ref_kf = kf_id
         tel.kf_inserted = kf_id
@@ -300,15 +356,21 @@ class Tracker:
         """Dispatch-only tracking for NORMAL/POSTINIT: nothing of the frame
         it dispatches is read here; its telemetry row appears in
         ``self.telemetry`` at commit time, ``commit_lag`` frames later, and
-        None is returned. INITIALIZE drains the pending window and runs
-        ``track``, returning its row."""
-        if sensor_data is not None:
-            raise NotImplementedError(
-                "sensor readings on keyframes feed pose priors, ROADMAP step 16")
+        None is returned. The cold states (INITIALIZE, REINITIALIZE) drain
+        the pending window and run ``track``, returning its row."""
         if self.state not in (State.NORMAL, State.POSTINIT):
             self.drain_pending()
-            return self.track(feats, timestamp, frame_id)
+            return self.track(feats, timestamp, frame_id, sensor_data=sensor_data)
         self.n_frames += 1
+        if self.reset_interval and self.n_frames % self.reset_interval == 0:
+            # fault injection is a host event: take the synchronous path
+            self.drain_pending()
+            if self.state in (State.NORMAL, State.POSTINIT):
+                self._sync_dev_to_host()
+                self._lose_tracking()
+                self.telemetry.append(TrackerTelemetry(
+                    frame_id=frame_id, state="NORMAL>FORCED_LOSS"))
+            return None
         self._ensure_dev()
         min_inl = (self.params.normal.thresh_refine_postreloc
                    if self.frames_since_reloc < 30
@@ -323,7 +385,8 @@ class Tracker:
         self._pending.append(_Pending(
             frame_id=frame_id, timestamp=timestamp, state_name=self.state.name,
             force_kf=self.state == State.POSTINIT, feats=feats,
-            scalars=scalars, fetched=fetched, Tcw=out.Tcw, lm_id=out.lm_id))
+            scalars=scalars, fetched=fetched, Tcw=out.Tcw, lm_id=out.lm_id,
+            sensor_data=sensor_data))
         while len(self._pending) > self.commit_lag:
             self._commit_one()
         return None
@@ -444,9 +507,10 @@ class Tracker:
                                self.cam_id, p.lm_id)
         ms, _ = seed_close_landmarks(ms, kf_id, self.cam)
         self._kf_mirror += 1
+        self._attach_sensor(kf_id, p.sensor_data)
         ms, stats = self.mapper.integrate_keyframe(
-            ms, kf_id, sensors=self.sensors, fetch_stats=False,
-            has_priors=self._has_priors)
+            ms, kf_id, sensors=self.sensors, opt_info=self.opt_info,
+            fetch_stats=False, has_priors=self._has_priors)
         self.ms = ms
         self.last_kf_frame_id = p.frame_id
         tel.kf_inserted = kf_id
@@ -455,8 +519,35 @@ class Tracker:
             self.on_keyframe(kf_id)
 
     def _lose_tracking(self):
-        """Tracking was lost: a stereo camera enters REINITIALIZE, which is
-        not ported yet, so this raises."""
+        """Transition on loss: a stereo camera re-initializes in a registered
+        sub-map (a monocular one would relocalize, ROADMAP steps 13-14)."""
         self.state = State.REINITIALIZE
-        raise NotImplementedError(
-            "tracking lost: " + _NOT_PORTED[State.REINITIALIZE])
+
+    def reenter_initialize(self):
+        """Re-enter INITIALIZE without discarding the map (an accessory
+        camera recovering from NULL): the new initialization happens in a
+        fresh private sub-map, so that the map before keeps its single origin
+        and gauge. The sub-map stays unregistered, no pose relation to the
+        parent being known yet, until imaging BA aligns and registers it
+        (ROADMAP step 17); until then global BA holds its origin fixed."""
+        self.state = State.INITIALIZE
+        n_kf, active, n_maps = torch.stack(
+            [self.ms.next_kf, self.ms.maps.active, self.ms.maps.n_maps]).tolist()
+        if n_kf == 0:
+            return  # nothing in the map yet: a plain first init
+        # an empty active sub-map left by an earlier failed re-entry is reused
+        in_active = bool(torch.any(self.ms.kf.valid & (self.ms.kf.map_id == active)))
+        if active != 0 and not in_active:
+            return
+        if n_maps >= M.MAX_MAPS:
+            return  # the sub-map table is full: keep the current map
+        self.ms, _ = M.create_submap(self.ms)
+
+    def _do_reinitialize(self, feats, timestamp, frame_id, tel):
+        """A new registered sub-map placed at the velocity-extrapolated pose
+        and tied to the last reference keyframe."""
+        self._do_initialize(feats, timestamp, frame_id, tel,
+                            Tcw0=TJ.predict_pose(self.traj, timestamp),
+                            as_submap=True, tie_kf=self.last_ref_kf)
+        if self.state == State.POSTINIT:
+            tel.state += ">REINIT_OK"

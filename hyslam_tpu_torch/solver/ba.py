@@ -1,7 +1,7 @@
 """Bundle adjustment with Schur-complement landmark marginalization
-(counterpart of ``hyslam_tpu/solver/ba.py``, the dense path without pose
-priors; the matrix-free CG solver is ROADMAP step 15 and the sensor and
-tiepoint priors step 16).
+(counterpart of ``hyslam_tpu/solver/ba.py``: the dense solve, the
+matrix-free CG solve, and sensor / tiepoint pose priors; the sharded solve
+over several devices, ``psum_axis``, is ROADMAP step 20).
 
 Levenberg-Marquardt over keyframe poses [K] and landmark positions [L], the
 landmark block eliminated exactly:
@@ -19,7 +19,11 @@ which adds in row order on the CPU and on a card alike, so BA gives the
 same bits on every run. The
 reduced system is solved by ``cholesky_ex`` + ``cholesky_solve``; where the
 factorization fails (info != 0) the pose step is zero, as the JAX package's
-NaN -> 0 gives it. Nothing here reads a value back to the host.
+NaN -> 0 gives it. ``solver="cg"`` never forms the [6K,6K] system: it runs
+block-Jacobi preconditioned conjugate gradients on matrix-free products, a
+fixed number of iterations with a converged mask under the stopping rule of
+``jax.scipy.sparse.linalg.cg`` (||r|| <= tol ||b||), so that no residual is
+read per iteration. Nothing here reads a value back to the host.
 """
 
 from __future__ import annotations
@@ -30,6 +34,13 @@ import torch
 
 from hyslam_tpu_torch.geometry import se3, so3
 from hyslam_tpu_torch.solver import robust
+from hyslam_tpu_torch.solver.priors import (
+    PosePriors,
+    linearize_priors_blocks,
+    prior_cost,
+    tie_offdiag_dense,
+    tie_offdiag_matvec,
+)
 
 CG_MIN_KEYFRAMES = 512   # solver="auto" picks the CG path from here on
 
@@ -63,7 +74,7 @@ class BAProblem(NamedTuple):
     lm_pos: torch.Tensor      # [L, 3]
     lm_valid: torch.Tensor    # [L] bool
     obs: BAObservations
-    priors: object = None     # pose priors: not ported (ROADMAP step 16)
+    priors: PosePriors | None = None  # sensor + tiepoint pose priors
 
 
 class BAResult(NamedTuple):
@@ -150,7 +161,10 @@ def _robust_cost(p: BAProblem, kf_Tcw, lm_pos, huber: bool):
     c2 = p.obs.inv_sigma2 * torch.sum(r * r, dim=-1)
     cost = robust.huber_rho(c2, _delta2(p)) if huber else c2
     w_valid = p.obs.valid & p.lm_valid[:, None] & (pc[..., 2] > 0.0)
-    return torch.sum(cost * w_valid.to(r.dtype))
+    total = torch.sum(cost * w_valid.to(r.dtype))
+    if p.priors is not None:
+        total = total + prior_cost(kf_Tcw, p.priors)
+    return total
 
 
 def _trace(M):
@@ -178,11 +192,8 @@ def _linearize_factors(p: BAProblem, kf_Tcw, lm_pos, lam, obs_active,
     # an order that changes from run to run)
     Hpp_blk = torch.einsum("lo,lori,lorj->loij", w, J_pose, J_pose)
     bp_blk = -torch.einsum("lo,lori,lor->loi", w, J_pose, r)
-    flat = (kf_idx.reshape(-1),)
-    Hpp = torch.zeros((K, 6, 6), dtype=dtype, device=w.device).index_put_(
-        flat, Hpp_blk.reshape(-1, 6, 6), accumulate=True)
-    b_pose = torch.zeros((K, 6), dtype=dtype, device=w.device).index_put_(
-        flat, bp_blk.reshape(-1, 6), accumulate=True)
+    Hpp = _segment_sum(Hpp_blk, kf_idx, K)
+    b_pose = _segment_sum(bp_blk, kf_idx, K)
 
     # landmark blocks
     V = torch.einsum("lo,lori,lorj->lij", w, J_point, J_point)
@@ -222,14 +233,43 @@ def _schur_reduce_dense(Y, y, kf_idx, K: int, chunk: int):
     return S, bh
 
 
+def _segment_sum(vals: torch.Tensor, kf_idx: torch.Tensor, K: int) -> torch.Tensor:
+    """Sum vals [L,O,...] by keyframe into [K,...], adding in row order."""
+    out = torch.zeros((K,) + vals.shape[2:], dtype=vals.dtype, device=vals.device)
+    return out.index_put_((kf_idx.reshape(-1),), vals.reshape((-1,) + vals.shape[2:]),
+                          accumulate=True)
+
+
+def _reduced_matvec(Y, kf_idx, x):
+    """Matrix-free S_red @ x for x [K,6]: t_l = sum_o Y[l,o]^T x[kf(l,o)],
+    then sum_o Y[l,o] t_l scattered back by keyframe. O(L*O) a product."""
+    t = torch.einsum("loac,loa->lc", Y, x[kf_idx])
+    return _segment_sum(torch.einsum("loac,lc->loa", Y, t), kf_idx, x.shape[0])
+
+
+def _reduced_rhs(Y, y, kf_idx, K: int):
+    """b_red [K,6] = sum_l A_{l,k} y_l, matrix-free."""
+    return _segment_sum(torch.einsum("loac,lc->loa", Y, y), kf_idx, K)
+
+
+def _reduced_diag(Y, kf_idx, K: int):
+    """Block diagonal of S_red [K,6,6], for the block-Jacobi preconditioner:
+    the sum over observations of Y Y^T, scattered by keyframe."""
+    return _segment_sum(torch.einsum("loac,lobc->loab", Y, Y), kf_idx, K)
+
+
+def _damped(Hpp, lam):
+    tr = _trace(Hpp)
+    eye6 = torch.eye(6, dtype=Hpp.dtype, device=Hpp.device)
+    return Hpp + lam * eye6 * torch.clamp_min(tr / 6.0, 1e-6)[:, None, None], tr
+
+
 def _solve_poses(Hpp, b_pose, S_red, b_red, kf_fixed, lam):
     """Solve the damped reduced camera system; fixed and unobserved poses
     get identity rows and a zero step. Returns delta_pose [K, 6]."""
     K = Hpp.shape[0]
     dtype, dev = Hpp.dtype, Hpp.device
-    tr = _trace(Hpp)
-    Hpp_d = Hpp + lam * torch.eye(6, dtype=dtype, device=dev) * torch.clamp_min(
-        tr / 6.0, 1e-6)[:, None, None]
+    Hpp_d, tr = _damped(Hpp, lam)
     idx = torch.arange(K, device=dev)
     S = torch.zeros((K, 6, K, 6), dtype=dtype, device=dev)
     S[idx, :, idx, :] = Hpp_d
@@ -244,6 +284,62 @@ def _solve_poses(Hpp, b_pose, S_red, b_red, kf_fixed, lam):
     return delta.reshape(K, 6)
 
 
+def _solve_poses_cg(Hpp, b_pose, b_red, Y, kf_idx, kf_fixed, lam,
+                    priors: PosePriors | None = None,
+                    Hab: torch.Tensor | None = None,
+                    n_cg: int = 200, tol: float = 1e-5):
+    """Solve the reduced camera system by preconditioned CG on matrix-free
+    products: S x = Hpp_d x - S_red x (+ the tiepoint off-diagonal), the
+    preconditioner block-Jacobi on the exact 6x6 diagonal blocks of S (their
+    Cholesky factors; a block that fails to factor preconditions with the
+    identity). The loop runs n_cg times; a system that has met
+    ||r||^2 <= tol^2 ||b||^2 stops changing, so the result is that of
+    ``jax.scipy.sparse.linalg.cg`` with the same tol and maxiter."""
+    K = Hpp.shape[0]
+    dtype, dev = Hpp.dtype, Hpp.device
+    Hpp_d, tr = _damped(Hpp, lam)
+    free = (~kf_fixed) & (tr > 0)
+    fm = free[:, None].to(dtype)                                  # [K,1]
+
+    def S_mv(x):
+        xz = x * fm
+        out = torch.einsum("kij,kj->ki", Hpp_d, xz) - _reduced_matvec(Y, kf_idx, xz)
+        if priors is not None and Hab is not None:
+            out = out + tie_offdiag_matvec(priors, Hab, xz, K)
+        # the identity on fixed and unused coordinates keeps S SPD
+        return out * fm + x * (1.0 - fm)
+
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    D = torch.where(free[:, None, None], Hpp_d - _reduced_diag(Y, kf_idx, K), eye6)
+    Lf, info = torch.linalg.cholesky_ex(D)
+    Dinv = torch.where((info == 0)[:, None, None],
+                       torch.cholesky_solve(eye6.expand(K, 6, 6), Lf), eye6)
+
+    def precond(r):
+        return torch.einsum("kij,kj->ki", Dinv, r) * fm + r * (1.0 - fm)
+
+    b = (b_pose - b_red) * fm
+    atol2 = tol * tol * torch.sum(b * b)
+    x = torch.zeros_like(b)
+    r = b
+    p = z = precond(r)
+    gamma = torch.sum(r * z)
+    for _ in range(n_cg):
+        active = torch.sum(r * r) > atol2
+        Ap = S_mv(p)
+        alpha = gamma / torch.sum(p * Ap)
+        x_new = x + alpha * p
+        r_new = r - alpha * Ap
+        z = precond(r_new)
+        gamma_new = torch.sum(r_new * z)
+        p_new = z + (gamma_new / gamma) * p
+        x = torch.where(active, x_new, x)
+        r = torch.where(active, r_new, r)
+        p = torch.where(active, p_new, p)
+        gamma = torch.where(active, gamma_new, gamma)
+    return torch.where(torch.isfinite(x) & free[:, None], x, 0.0)
+
+
 def _backsub(Vinv, Wlo, b_lm, kf_idx, delta_pose, lm_valid):
     """Per-landmark back-substitution."""
     rhs = b_lm - torch.einsum("loij,loi->lj", Wlo, delta_pose[kf_idx])
@@ -252,27 +348,38 @@ def _backsub(Vinv, Wlo, b_lm, kf_idx, delta_pose, lm_valid):
 
 
 def _assemble_and_solve(p: BAProblem, kf_Tcw, lm_pos, lam, obs_active,
-                        huber: bool, chunk: int):
-    """One LM linearization + dense Schur solve -> (delta_pose [K,6],
-    delta_lm [L,3])."""
+                        huber: bool, chunk: int, solver: str = "dense"):
+    """One LM linearization + Schur solve -> (delta_pose [K,6],
+    delta_lm [L,3]). solver "dense" forms the [6K,6K] reduced system and
+    factors it; "cg" runs matrix-free preconditioned CG (memory O(K)). The
+    priors' diagonal blocks join Hpp before the damping; the tiepoint
+    coupling enters the reduced system off the diagonal."""
     K = kf_Tcw.shape[0]
     Hpp, b_pose, Y, y, Vinv, Wlo, b_lm, kf_idx = _linearize_factors(
         p, kf_Tcw, lm_pos, lam, obs_active, huber)
-    S_red, b_red = _schur_reduce_dense(Y, y, kf_idx, K, chunk)
-    delta_pose = _solve_poses(Hpp, b_pose, S_red, b_red, p.kf_fixed, lam)
+    Hab = None
+    if p.priors is not None:
+        Hd_pr, b_pr, Hab = linearize_priors_blocks(kf_Tcw, p.priors)
+        Hpp = Hpp + Hd_pr
+        b_pose = b_pose + b_pr
+    if solver == "cg":
+        b_red = _reduced_rhs(Y, y, kf_idx, K)
+        delta_pose = _solve_poses_cg(Hpp, b_pose, b_red, Y, kf_idx, p.kf_fixed, lam,
+                                     priors=p.priors, Hab=Hab)
+    else:
+        S_red, b_red = _schur_reduce_dense(Y, y, kf_idx, K, chunk)
+        if p.priors is not None:
+            S_red = S_red - tie_offdiag_dense(p.priors, Hab, K, Hpp.dtype)
+        delta_pose = _solve_poses(Hpp, b_pose, S_red, b_red, p.kf_fixed, lam)
     return delta_pose, _backsub(Vinv, Wlo, b_lm, kf_idx, delta_pose, p.lm_valid)
 
 
-def _check_supported(p: BAProblem, solver: str) -> None:
-    if p.priors is not None:
-        raise NotImplementedError(
-            "bundle adjustment with pose priors is ROADMAP step 16, not ported")
-    if solver == "cg" or (solver == "auto" and p.kf_Tcw.shape[0] >= CG_MIN_KEYFRAMES):
-        raise NotImplementedError(
-            "the matrix-free CG solver (solver='cg', or 'auto' at K >= "
-            f"{CG_MIN_KEYFRAMES}) is ROADMAP step 15, not ported")
-    if solver not in ("auto", "dense"):
+def _resolve_solver(p: BAProblem, solver: str) -> str:
+    if solver == "auto":
+        return "cg" if p.kf_Tcw.shape[0] >= CG_MIN_KEYFRAMES else "dense"
+    if solver not in ("cg", "dense"):
         raise ValueError(f"unknown solver {solver!r}")
+    return solver
 
 
 def bundle_adjustment(p: BAProblem, n_iters: int = 10, huber: bool = True,
@@ -281,15 +388,18 @@ def bundle_adjustment(p: BAProblem, n_iters: int = 10, huber: bool = True,
     """LM bundle adjustment over (poses, landmarks). obs_active optionally
     masks observations (the two-phase driver passes the phase-1 inliers).
     A step is kept only where it lowers the robust cost; lambda halves on
-    acceptance and quadruples otherwise."""
-    _check_supported(p, solver)
+    acceptance and quadruples otherwise. solver: "dense", "cg", or "auto"
+    (cg from CG_MIN_KEYFRAMES poses on, where the dense reduced system
+    leaves the small-map regime)."""
+    solver = _resolve_solver(p, solver)
     obs_active = p.obs.valid if obs_active is None else obs_active & p.obs.valid
     pa = p._replace(obs=p.obs._replace(valid=obs_active))
     kf_Tcw, lm_pos = p.kf_Tcw, p.lm_pos
     lam = torch.full((), lam0, dtype=kf_Tcw.dtype, device=kf_Tcw.device)
     cost = _robust_cost(pa, kf_Tcw, lm_pos, huber)
     for _ in range(n_iters):
-        dp, dl = _assemble_and_solve(p, kf_Tcw, lm_pos, lam, obs_active, huber, chunk)
+        dp, dl = _assemble_and_solve(p, kf_Tcw, lm_pos, lam, obs_active, huber, chunk,
+                                     solver)
         kf_new = torch.where(p.kf_fixed[:, None, None], kf_Tcw, se3.exp(dp) @ kf_Tcw)
         lm_new = lm_pos + dl
         new_cost = _robust_cost(pa, kf_new, lm_new, huber)

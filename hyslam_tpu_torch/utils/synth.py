@@ -344,3 +344,42 @@ def write_tum_sequence(root: str, images, depths, times, poses=None,
                 f.write("%.6f %.9f %.9f %.9f %.9f %.9f %.9f %.9f\n" % (
                     ts, *Twc[:3, 3], q[1], q[2], q[3], q[0]))
 
+
+# the GPS frame of ``render_sensors`` against the SLAM frame: yaw about z
+# (rad), scale and shift (GPS = scale * Rz(yaw) * SLAM + shift)
+GPS_YAW, GPS_SCALE, GPS_SHIFT = 0.7, 1.03, (120.0, -45.0, 8.0)
+
+
+def render_sensors(poses, seed: int = 0, gps_sigma=(0.02, 0.02, 0.05)) -> list:
+    """Per-frame sensor readings from the true poses (Tcw) and a numpy seed,
+    as keyword dicts for ``SensorData(**d)`` of either package:
+
+    - GPS fixes of the camera centre in a frame of their own, rotated by
+      ``GPS_YAW`` about z, scaled by ``GPS_SCALE`` and shifted by
+      ``GPS_SHIFT`` against the SLAM frame, with Gaussian noise of
+      ``gps_sigma`` per axis, which is also the reported per-axis error;
+    - the world-to-camera quaternion (w, x, y, z), w >= 0;
+    - the pressure depth: t_z of Tcw."""
+    rng = np.random.default_rng(seed)
+    c, s = np.cos(GPS_YAW), np.sin(GPS_YAW)
+    Rg = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+    sig = np.asarray(gps_sigma, np.float64)
+    out = []
+    for Tcw in poses:
+        T = np.asarray(Tcw, np.float64)
+        centre = -T[:3, :3].T @ T[:3, 3]
+        gps = GPS_SCALE * (Rg @ centre) + np.asarray(GPS_SHIFT) + rng.normal(0.0, sig)
+        out.append(dict(
+            gps_rel=tuple(float(x) for x in gps), gps_err=tuple(float(x) for x in sig),
+            gps_valid=True, quat=tuple(float(x) for x in _quat_from_mat(T[:3, :3])),
+            quat_valid=True, depth=float(T[2, 3]), depth_valid=True))
+    return out
+
+
+def blackout(frames, start: int, stop: int, level: float = 20.0):
+    """A copy of a rendered sequence [n, ...] (numpy array or tensor) whose
+    frames start..stop-1 are flat images of grey ``level`` (nothing to
+    extract: tracking is lost)."""
+    out = frames.clone() if hasattr(frames, "clone") else np.array(frames, copy=True)
+    out[start:stop] = level
+    return out

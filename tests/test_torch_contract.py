@@ -48,7 +48,8 @@ SLICE_MODULES = [
     "hyslam_tpu_torch.features.factory", "hyslam_tpu_torch.io.config",
     "hyslam_tpu_torch.io.datasets", "hyslam_tpu_torch.io.evaluate",
     "hyslam_tpu_torch.io.export", "hyslam_tpu_torch.utils.telemetry",
-    "hyslam_tpu_torch.slam.system",
+    "hyslam_tpu_torch.slam.system", "hyslam_tpu_torch.solver.priors",
+    "hyslam_tpu_torch.slam.sensor_fusion",
 ]
 
 
@@ -300,33 +301,45 @@ def test_interop_roundtrips_map_state_and_trajectory():
 
 def test_unported_paths_raise():
     """Every state, flag and solver path that is not ported raises
-    NotImplementedError and names its ROADMAP step; none falls back."""
+    NotImplementedError and names its ROADMAP step; none falls back. What
+    loss recovery and sensor fusion brought no longer raises: forced-loss
+    injection, sensor readings, REINITIALIZE, the CG solve, pose priors."""
+    from hyslam_tpu_torch.core.frame import empty_features
     from hyslam_tpu_torch.core.mapstate import MapCaps
-    from hyslam_tpu_torch.core.sensordata import empty_sensor_arena
-    from hyslam_tpu_torch.slam import mapper, tracker
+    from hyslam_tpu_torch.core.sensordata import SensorData
+    from hyslam_tpu_torch.slam import tracker
     from hyslam_tpu_torch.slam.tracking_params import NormalStateParams, TrackingParams
-    from hyslam_tpu_torch.solver import ba
+    from hyslam_tpu_torch.solver import ba, priors
 
     caps = MapCaps(K=4, L=64, F=16, O=4)
     with pytest.raises(NotImplementedError, match="step 13"):
         tracker.Tracker(cam=SMALL_CAM, caps=caps, is_mono=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="step 16"):
-        tracker.Tracker(cam=SMALL_CAM, caps=caps, reset_interval=15, device="cpu")
-    with pytest.raises(NotImplementedError, match="step 16"):
-        tracker.Tracker(cam=SMALL_CAM, caps=caps, params=TrackingParams(
-            normal=NormalStateParams(reset_interval=15)), device="cpu")
+    with pytest.raises(NotImplementedError, match="step 19"):
+        tracker.Tracker(cam=SMALL_CAM, caps=caps, mapping_status=object(), device="cpu")
+    assert tracker.Tracker(cam=SMALL_CAM, caps=caps, reset_interval=15,
+                           device="cpu").reset_interval == 15
+    from_params = tracker.Tracker(cam=SMALL_CAM, caps=caps, params=TrackingParams(
+        normal=NormalStateParams(reset_interval=15)), device="cpu")
+    assert from_params.reset_interval == 15
+    # the explicit field wins over the params tree
+    assert tracker.Tracker(cam=SMALL_CAM, caps=caps, reset_interval=7, params=TrackingParams(
+        normal=NormalStateParams(reset_interval=15)), device="cpu").reset_interval == 7
     tr = tracker.Tracker(cam=SMALL_CAM, caps=caps, device="cpu")
-    from hyslam_tpu_torch.core.frame import empty_features
-    with pytest.raises(NotImplementedError, match="step 16"):
-        tr.track(empty_features(16), 0.0, 0, sensor_data=object())
-    for state, step in ((tracker.State.REINITIALIZE, "step 16"),
-                        (tracker.State.RELOCALIZE, "step 14")):
-        tr.state = state
-        with pytest.raises(NotImplementedError, match=step):
-            tr.track(empty_features(16), 0.0, 0)
-    with pytest.raises(NotImplementedError, match="step 16"):
-        tr._lose_tracking()
+    sd = SensorData(depth=1.0, depth_valid=True)
+    # a featureless frame: no keyframe, so the reading is dropped
+    assert tr.track(empty_features(16), 0.0, 0, sensor_data=sd).state == "INITIALIZE"
+    assert not tr._has_priors and not tr.sensors.depth_valid.any()
+    tr.state = tracker.State.RELOCALIZE
+    with pytest.raises(NotImplementedError, match="step 14"):
+        tr.track(empty_features(16), 0.0, 0)
+    tr.state = tracker.State.NULL
+    assert tr.track(empty_features(16), 0.1, 1).state == "NULL"
+    tr.state = tracker.State.NORMAL
+    tr._lose_tracking()
     assert tr.state == tracker.State.REINITIALIZE
+    # a featureless frame in REINITIALIZE opens no sub-map
+    assert tr.track(empty_features(16), 0.2, 2).state == "REINITIALIZE"
+    assert int(tr.ms.maps.n_maps) == 1 and tr.state == tracker.State.REINITIALIZE
 
     K, L, O = 3, 4, 2
     prob = ba.BAProblem(
@@ -337,22 +350,11 @@ def test_unported_paths_raise():
                               torch.zeros(L, O), torch.ones(L, O),
                               torch.zeros(L, O, dtype=torch.bool),
                               torch.ones(L, O, dtype=torch.bool)))
-    with pytest.raises(NotImplementedError, match="step 15"):
-        ba.bundle_adjustment(prob, solver="cg")
-    big = prob._replace(kf_Tcw=torch.eye(4).repeat(512, 1, 1))
-    with pytest.raises(NotImplementedError, match="step 15"):
-        ba.bundle_adjustment(big, solver="auto")
-    with pytest.raises(NotImplementedError, match="step 16"):
-        ba.bundle_adjustment(prob._replace(priors=object()))
-
-    from hyslam_tpu_torch.core.mapstate import empty_map_state
-    ms = empty_map_state(caps)
-    sensors = empty_sensor_arena(4)
-    sensors = sensors._replace(gps_valid=torch.tensor([True, False, False, False]))
-    m = mapper.Mapper(SMALL_CAM)
-    m.kf_count = 3
-    with pytest.raises(NotImplementedError, match="step 16"):
-        m.integrate_keyframe(ms, 0, sensors=sensors)
-    ms = ms._replace(maps=ms.maps._replace(registered=torch.ones_like(ms.maps.registered)))
-    with pytest.raises(NotImplementedError, match="step 16"):
-        m.integrate_keyframe(ms, 0)
+    for kw in (dict(solver="cg"), dict(solver="dense"), dict(solver="auto")):
+        assert bool(torch.isfinite(ba.bundle_adjustment(prob, n_iters=2, **kw).kf_Tcw).all())
+    with_pr = ba.bundle_adjustment(prob._replace(priors=priors.empty_pose_priors(K, E=2)),
+                                   n_iters=2)
+    assert bool(torch.isfinite(with_pr.cost))
+    with pytest.raises(ValueError, match="unknown solver"):
+        ba.bundle_adjustment(prob, solver="lu")
+    assert not hasattr(ba, "psum_axis")   # the sharded solve is ROADMAP step 20

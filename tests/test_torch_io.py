@@ -490,12 +490,16 @@ def test_checkpoint_passes_between_packages(carried, tmp_path):
     np.testing.assert_array_equal(np.asarray(jt2.last_feats.desc), np.asarray(jt.last_feats.desc))
     np.testing.assert_array_equal(np.asarray(jt2.sensors.quat), np.asarray(jt.sensors.quat))
 
-    # a file with a sensor reading: the async loop's host-known flag is set,
-    # and local BA with it raises (pose priors are not ported)
-    jt.sensors = jt.sensors._replace(gps_valid=jt.sensors.gps_valid.at[0].set(True))
+    # a file with a sensor reading: the async loop's host-known flag is set
+    # and the arena carries the reading, which build_pose_priors sees
+    from hyslam_tpu_torch.io.config import OptimizerInfo
+    from hyslam_tpu_torch.slam.sensor_fusion import build_pose_priors
+    jt.sensors = jt.sensors._replace(depth_valid=jt.sensors.depth_valid.at[0].set(True),
+                                     depth=jt.sensors.depth.at[0].set(-1.5))
     j_export.save_checkpoint(pj, jt)
     assert export.load_checkpoint(pj, tt) is None and tt._has_priors
     assert tt.mapper.kf_count == 4
-    with pytest.raises(NotImplementedError, match="step 16"):
-        tt.mapper.integrate_keyframe(tt.ms, 0, sensors=tt.sensors, fetch_stats=False,
-                                     has_priors=tt._has_priors)
+    assert tt.sensors.depth_valid.tolist() == [True, False, False, False]
+    pr = build_pose_priors(tt.ms, tt.sensors, OptimizerInfo(depth_info=2.0))
+    assert pr.depth_valid.tolist() == [True, False, False, False]
+    assert float(pr.depth[0]) == -1.5 and float(pr.depth_info[0]) == 2.0

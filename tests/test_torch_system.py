@@ -243,8 +243,10 @@ def test_unported_entry_points_raise_and_defaults():
         s.place_imaging_frame(0.0)
     with pytest.raises(NotImplementedError, match="step 17"):
         s.run_imaging_bundle_adjustment()
-    with pytest.raises(NotImplementedError, match="step 16"):
-        s.track_features(empty_features(1024), 0.0, sensor_data=object())
+    from hyslam_tpu_torch.core.sensordata import SensorData
+    tel = s.track_features(empty_features(1024), 0.0,
+                           sensor_data=SensorData(depth=1.0, depth_valid=True))
+    assert tel.state == "INITIALIZE" and not s.trackers["SLAM"]._has_priors
     with pytest.raises(ValueError, match="exceeds arena capacity"):
         System(_cfg(cameras={"SLAM": CameraConfig(
             bf=45.0, extractor=ExtractorConfig(n_features=2000))})).track_stereo(img, img, 0.0)
