@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's stereo front end, tracker and System on one CUDA card,
-through a loss of tracking and with sensor readings.
+through a loss of tracking, with sensor readings, with a monocular camera
+and with periodic global BA.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card and
 the CUDA toolkit:
@@ -91,14 +92,18 @@ It exits non-zero, printing no result, where CUDA is not available. Phases:
 
 6. Loss recovery and sensor fusion, through ``System`` at the same
    operating point. *6a, blackout*: frames 30-33 are flat images; sync, then
-   async twice. The tracker enters REINITIALIZE, the blank frames leave no
+   async. The tracker enters REINITIALIZE, the blank frames leave no
    sub-map behind (2 maps), the sub-map is registered and tied to the last
    reference keyframe before the loss, a row carries ``>REINIT_OK``, every
    frame from the recovery on is tracked, local BA takes the prior path on
    the keyframes after it, K1 launches as the telemetry calls for, ATE and
    worst frame over the tracked frames under bounds set from readings; the
-   two async runs print identical lines, which up to the blackout are
-   phase 5's. *6b, forced loss*: ``reset_interval`` 15 from the config, 50
+   async run's lines up to the blackout are phase 5's. The sync run is
+   also phase 7d's tiepoint run: ``optimizer.realtime=False`` with
+   ``gba_interval`` GBA_EVERY_6A, so that one global BA runs a few
+   keyframes after the recovery, with the sub-map's tiepoint edge; it must
+   free the sub-map's origin, and it prints how far the sub-map's and the
+   root map's keyframes lie from the truth before and after it. *6b, forced loss*: ``reset_interval`` 15 from the config, 50
    frames: at least 3 maps, every sub-map registered, trajectory rows for
    every tracked frame. *6c, sensors*: rendered GPS, IMU and depth readings
    on every frame with positive weights: the GPS prior becomes active with
@@ -107,24 +112,36 @@ It exits non-zero, printing no result, where CUDA is not available. Phases:
    after frame 40 resumes with its sensor arena to the uninterrupted run's
    next pose. *6d*: CG against the dense solve: the pose step of the first
    linearization within 1e-3 relative; after a few robust iterations costs
-   within 1e-4 relative and poses within 1e-3. *sensors*, the problem the
+   within 1e-4 relative and poses within 1e-3, on the problem the
    system produces: the local BA of 6c's last keyframe with its GPS, IMU
    and depth priors, 5 robust iterations (local BA's phase 1), then the
    whole two-phase schedule by each solver with the time of each, where
    CG's cost must end no more than 1% above the dense solve's (over 15 LM
    iterations two correct solvers part at an accept-or-reject decision, so
-   their difference is printed, not bounded). *tiepoint*, a
-   constructed problem: local BA holds a map's origin keyframe fixed and
-   gives the parent's tie keyframe no slot, so a tiepoint edge never lies
-   in a window the system builds (it is for global BA). To run the edge's
-   coupling between two poses through both solvers on the card all the
-   same, the window of the first keyframe after 6a's recovery is changed:
-   the tie keyframe takes a free slot as the fixed anchor, the sub-map's
-   origin is let move and the edge, at weight TIE_INFO_6D, is what holds
-   the sub-map; N_TIE_ITERS robust iterations by each solver. Printed: ms per
+   their difference is printed, not bounded). (A tiepoint edge never lies
+   in a local-BA window: global BA carries it, in 6a's sync run.) Printed: ms per
    ``integrate_keyframe`` with and without priors, ms of
    ``build_pose_priors``, the synchronising calls of a keyframe frame on the
    prior path.
+
+7. The monocular camera and global BA. *7a*: the left images of the first
+   N_MONO frames, frames DARK_MONO flat, through ``System.track_monocular``
+   of a monocular camera (the two-view initializer with the init extractor,
+   INITIALIZE -> POSTINIT -> NORMAL, on the loss RELOCALIZE: ranked
+   keyframes, PnP, the pose-only LM, the local map). Gates: initialized
+   before the blackout, keyframes, one ``>RELOC_OK`` within 3 frames of
+   the blackout's end and every later frame tracked, ATE and worst frame
+   after a sim3 alignment under bounds set from readings, K1 launches as
+   the telemetry and the relocalization log call for. *7b*: the same frames
+   with ``async_tracking=True``: the loss at commit time (``NORMAL>LOST``),
+   then the same gates. *7c*: K1 against the plain solver on the card on
+   two problems of 7a: its last frame's local-map solve (``stereo`` all
+   False) and its last PnP refinement, with phase 1's bounds, both timed.
+   *7d*: a short stereo sync run at MapCaps(K=K_BIG) with
+   ``optimizer.realtime=False``, whose global BA ``solver="auto"`` sends to
+   the CG solve; on its map the dense global BA, timed beside it: the
+   first linearization's pose steps within 1e-3 relative, CG's final cost
+   no more than 1% above dense's; and the mapper's ms a keyframe at K_BIG.
 
 Prints the card line, one JSON line of kernel results (with the kernel's
 time: its bound and what sets it, its fixed part and its time an
@@ -191,7 +208,7 @@ N_COMPARE = 3
 # runs and of the runs that count synchronising calls
 N_WARM, N_RGBD, N_DISK, N_SYNC_COUNT = 10, 30, 8, 24
 MIN_SEEDED_RGBD = 100
-N_PLAIN = 30                  # phase 4: frames of the run with the plain solver
+N_PLAIN = 20                  # phase 4: frames of the run with the plain solver
 # phase 6: the blackout (frames DARK[0]..DARK[1]-1 are flat), the forced
 # loss, the sensors' weights and noise, the checkpoint's frame. The bounds
 # are 1.5x the sync run's readings on an NVIDIA H100 80GB HBM3 at 700 W
@@ -210,21 +227,31 @@ N_PRIOR_SYNC_COUNT = 12       # last frames of 6a's sync run, counted
 # CG against dense, held where the comparison is well defined (readings on an
 # NVIDIA H100 80GB HBM3 at 700 W, PERF.md): the pose step of one
 # linearization (1.4e-4 relative seen), and a few robust iterations (cost
-# 1.2e-7 relative, poses 2.7e-5 on 6c's window; 1.6e-5 and 8.0e-5 on the
-# constructed one). Over the whole schedule two correct solvers part: in the
+# 1.2e-7 relative, poses 2.7e-5 on 6c's window). Over the whole schedule of
+# local BA two correct solvers part: in the
 # non-robust phase, at a damping of ~1e-6, a step with a far landmark in it
 # is accepted by one solver and rejected by the other (its cost 38469
 # against 428), and from there on they follow different paths to costs 7e-4
 # and poses 7e-3 apart, neither converged after 10 iterations. There the
-# gate is one-sided: CG must end no more than 1% above the dense solve.
+# gate is one-sided: CG must end no more than 1% above the dense solve (and
+# so in 7d, over global BA's 20 robust iterations at K_BIG).
 CG_STEP_RTOL, CG_COST_RTOL, CG_POSE_ATOL, CG_WHOLE_COST_RTOL = 1e-3, 1e-4, 1e-3, 1e-2
 N_SHORT_ITERS = 5             # robust iterations of 6d's short solve (local BA's phase 1)
-# 6d's constructed tiepoint problem: the edge is the only thing that holds
-# the released sub-map, so its weight decides the conditioning. At the
-# default 1e4 the cost is a valley along the sub-map's motion and the two
-# solvers ended 4.4e-3 apart in pose (costs 1.4e-3 relative); at 1e6 the
-# edge dominates and they agree to 1.5e-5
-TIE_INFO_6D, N_TIE_ITERS = 1e6, 3
+# 6a's sync run with periodic global BA: its keyframes are frames 0-29 and
+# one a frame from the recovery (34) on, so the 36th keyframe, which runs
+# the one global BA of the run, is frame 39's: five keyframes after the
+# recovery, with the sub-map registered and its tiepoint edge active
+GBA_EVERY_6A = 36
+# phase 7: the monocular run (the left images of the first N_MONO frames,
+# frames DARK_MONO[0]..DARK_MONO[1]-1 flat) and the K_BIG run (N_BIG stereo
+# frames, one global BA at the last keyframe)
+N_MONO, DARK_MONO = 36, (20, 23)
+MAX_RELOC_DELAY = 3           # frames from the blackout's end to >RELOC_OK
+# bounds after a sim3 alignment, 1.5x the first readings on an NVIDIA H100
+# 80GB HBM3 at 700 W (PERF.md): ATE 0.085417 m sync, 0.069289 m async; the
+# worst frame is the initialization's second frame, 0.183642 m
+MAX_ATE_MONO, MAX_T_MONO = 0.13, 0.28
+K_BIG, N_BIG = 512, 10
 
 
 def log(msg: str) -> None:
@@ -819,18 +846,18 @@ def log_sync_calls(phase: str, mode: str, per_frame) -> None:
             log(f"{what}: no such frame among frames {N_WARM}-{N_SYNC_COUNT - 1}")
 
 
-def make_system(cam, cfg, camera_kw=None, **kw):
-    """A System at the operating point of phases 4-6, built the way a user
+def make_system(cam, cfg, camera_kw=None, caps=TRACK_CAPS, **kw):
+    """A System at the operating point of phases 4-7, built the way a user
     builds one: from a SystemConfig made in code, with no device given, so
-    that it takes the card."""
+    that it takes the card. camera_kw override the camera's settings."""
     from hyslam_tpu_torch.core.mapstate import MapCaps
     from hyslam_tpu_torch.io.config import CameraConfig, SystemConfig
     from hyslam_tpu_torch.slam.system import System
 
-    cc = CameraConfig(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, width=cam.width,
-                      height=cam.height, bf=cam.bf, th_depth=cam.th_depth, extractor=cfg,
-                      **(camera_kw or {}))
-    return System(SystemConfig(cameras={"SLAM": cc}, caps=MapCaps(*TRACK_CAPS),
+    cc = CameraConfig(**{**dict(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, width=cam.width,
+                                height=cam.height, bf=cam.bf, th_depth=cam.th_depth,
+                                extractor=cfg), **(camera_kw or {})})
+    return System(SystemConfig(cameras={"SLAM": cc}, caps=MapCaps(*caps),
                                enable_loop_closing=False, **kw))
 
 
@@ -841,10 +868,52 @@ def tracked_row(t) -> bool:
 
 
 def expected_launches(tracker) -> int:
-    """The K1 launches the telemetry calls for: 2 a frame through the
-    NORMAL-state step, 3 where its motion model failed."""
+    """The K1 launches the telemetry and the relocalization log call for: 2
+    a frame through the NORMAL-state step, 3 where its motion model failed;
+    in RELOCALIZE one a PnP refinement and one a local-map solve."""
     n_min = tracker.params.motion.n_min_matches
-    return sum(2 + (t.n_motion < n_min) for t in tracker.telemetry if tracked_row(t))
+    return (sum(2 + (t.n_motion < n_min) for t in tracker.telemetry if tracked_row(t))
+            + sum(r["pnp_solves"] + r["local_solves"] for r in tracker.reloc_log))
+
+
+def time_integrate(tracker):
+    """Wrap the tracker's integrate_keyframe with a synchronised clock:
+    returns the list it fills with (keyframe id, ms, took the prior path)."""
+    integrate, rows = tracker.mapper.integrate_keyframe, []
+
+    def timed_integrate(ms, kf_id, **kw):
+        before = tracker.mapper.n_prior_ba
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = integrate(ms, kf_id, **kw)
+        torch.cuda.synchronize()
+        rows.append((int(kf_id), 1e3 * (time.perf_counter() - t),
+                     tracker.mapper.n_prior_ba > before))
+        return out
+
+    tracker.mapper.integrate_keyframe = timed_integrate
+    return rows
+
+
+def first_step_apart(prob, chunk: int = 256):
+    """One linearization of a BA problem at its start, the pose step by each
+    solver: (max|d_cg - d_dense|, max|d_dense|)."""
+    from hyslam_tpu_torch.solver import ba, priors
+
+    lam = torch.full((), 1e-4, device=prob.kf_Tcw.device)
+    K = prob.kf_Tcw.shape[0]
+    Hpp, b_pose, Y, y, _, _, _, kf_idx = ba._linearize_factors(
+        prob, prob.kf_Tcw, prob.lm_pos, lam, prob.obs.valid, True)
+    S_red, b_red = ba._schur_reduce_dense(Y, y, kf_idx, K, chunk)
+    Hab = None
+    if prob.priors is not None:
+        Hd, b_pr, Hab = priors.linearize_priors_blocks(prob.kf_Tcw, prob.priors)
+        Hpp, b_pose = Hpp + Hd, b_pose + b_pr
+        S_red = S_red - priors.tie_offdiag_dense(prob.priors, Hab, K, Hpp.dtype)
+    dense = ba._solve_poses(Hpp, b_pose, S_red, b_red, prob.kf_fixed, lam)
+    cg = ba._solve_poses_cg(Hpp, b_pose, ba._reduced_rhs(Y, y, kf_idx, K), Y, kf_idx,
+                            prob.kf_fixed, lam, priors=prob.priors, Hab=Hab)
+    return float((cg - dense).abs().max()), float(dense.abs().max())
 
 
 def frame_lines(tracker):
@@ -1060,8 +1129,10 @@ def phase6(cam, cfg, poses, pairs, tracked, async_lines5):
     from hyslam_tpu_torch.core.sensordata import SensorData
     from hyslam_tpu_torch.io.config import OptimizerInfo
     from hyslam_tpu_torch.ops.pose_opt_cuda import pose_optimization_cuda
+    from hyslam_tpu_torch.slam import global_ba
     from hyslam_tpu_torch.slam import mapper as mapper_mod
     from hyslam_tpu_torch.slam import sensor_fusion
+    from hyslam_tpu_torch.slam import system as system_mod
     from hyslam_tpu_torch.slam.tracker import State
     from hyslam_tpu_torch.slam.tracking_params import NormalStateParams, TrackingParams
     from hyslam_tpu_torch.solver import ba, priors
@@ -1159,30 +1230,39 @@ def phase6(cam, cfg, poses, pairs, tracked, async_lines5):
             return pr
         return spy
 
-    def time_integrate(tracker):
-        """Wrap the tracker's integrate_keyframe with a synchronised clock:
-        returns the list it fills with (keyframe id, ms, took the prior path)."""
-        integrate, rows = tracker.mapper.integrate_keyframe, []
+    def kf_errors(ms, map_id):
+        """Translation error against the truth of each live keyframe of a map."""
+        ks = torch.nonzero(ms.kf.valid & ~ms.kf.bad & (ms.kf.map_id == map_id))[:, 0]
+        T, fids = ms.kf.Tcw[ks].cpu().numpy(), ms.kf.frame_id[ks].tolist()
+        return [synth.pose_error(T[j], poses[f])[1] for j, f in enumerate(fids)]
 
-        def timed_integrate(ms, kf_id, **kw):
-            before = tracker.mapper.n_prior_ba
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = integrate(ms, kf_id, **kw)
-            torch.cuda.synchronize()
-            rows.append((int(kf_id), 1e3 * (time.perf_counter() - t),
-                         tracker.mapper.n_prior_ba > before))
-            return out
+    # the sync run is 7d's tiepoint run: periodic global BA, spied on
+    gba_log = []
 
-        tracker.mapper.integrate_keyframe = timed_integrate
-        return rows
+    def spied_build(ms, cam_, tie_active=False, **kw):
+        prob = build_global_problem(ms, cam_, tie_active=tie_active, **kw)
+        gba_log[-1].update(tie_active=tie_active, free_origins=torch.nonzero(
+            ms.kf.origin & ms.kf.valid & ~prob.kf_fixed)[:, 0].tolist())
+        return prob
 
-    sysm = make_system(cam, cfg)
+    def spied_run(ms, *a, **kw):
+        gba_log.append({"before": ms})
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run_global_ba(ms, *a, **kw)
+        torch.cuda.synchronize()
+        gba_log[-1].update(after=out[0], cost=out[1], ms=1e3 * (time.perf_counter() - t))
+        return out
+
+    sysm = make_system(cam, cfg, optimizer=OptimizerInfo(realtime=False,
+                                                         gba_interval=GBA_EVERY_6A))
     tr = sysm.trackers["SLAM"]
     counted, counted_plain = [], []
     held = {"tie": []}
     mapper_ms_a = time_integrate(tr)
     mapper_mod._slot_priors = spying_on_slot_priors(held, keep_first=True)
+    build_global_problem, run_global_ba = global_ba.build_global_problem, system_mod.run_global_ba
+    global_ba.build_global_problem, system_mod.run_global_ba = spied_build, spied_run
     try:
         pose_optimization_cuda.launches = 0
         for i in range(n):
@@ -1200,6 +1280,8 @@ def phase6(cam, cfg, poses, pairs, tracked, async_lines5):
         launches = pose_optimization_cuda.launches
     finally:
         mapper_mod._slot_priors = slot_priors
+        global_ba.build_global_problem, system_mod.run_global_ba = build_global_problem, \
+            run_global_ba
     total += launches
     check_blackout("sync", tr, launches)
     log(f"phase 6a sync: the tiepoint edge lay in local BA's window on {sum(held['tie'])} of "
@@ -1208,27 +1290,45 @@ def phase6(cam, cfg, poses, pairs, tracked, async_lines5):
          len(held["tie"]) == tr.mapper.n_prior_ba)
     log_sync_calls("phase 6a (before the blackout, no priors)", "sync", counted_plain)
 
-    runs = []
-    for _ in range(2):
-        sysm = make_system(cam, cfg, async_tracking=True, commit_lag=2)
-        launches = run(sysm, dark, n, flush_at=N_WARM)
-        runs.append((sysm.trackers["SLAM"], launches))
-    total += runs[0][1]
-    check_blackout("async", *runs[0])
-    lines = [frame_lines(t) for t, _ in runs]
+    # ---- 7d, the tiepoint run: 6a's sync run with periodic global BA
+    origin1 = [k for k in torch.nonzero(tr.ms.kf.origin & tr.ms.kf.valid)[:, 0].tolist()
+               if int(tr.ms.kf.map_id[k]) == 1]
+    tied = []
+    for g in gba_log:
+        b, a = g["before"], g["after"]
+        moved = (float((a.kf.Tcw[origin1[0]] - b.kf.Tcw[origin1[0]]).abs().max())
+                 if origin1 else 0.0)
+        e = {m: (kf_errors(b, m), kf_errors(a, m)) for m in (0, 1)}
+        log(f"phase 7d tiepoint run: global BA with {int(b.next_kf)} keyframes, tiepoint "
+            f"priors active {g['tie_active']}, free origins {g['free_origins']}, cost "
+            f"{g['cost']:.4f}, {g['ms']:.1f} ms; the sub-map's origin (keyframe "
+            f"{origin1[0] if origin1 else None}) moved by max|dT| {moved:.3e}; keyframe "
+            "translation errors against the truth, mean / max m, before -> after: " + "; ".join(
+                f"map {m}: {np.mean(x):.6f} / {max(x):.6f} -> {np.mean(y):.6f} / {max(y):.6f}"
+                for m, (x, y) in e.items() if x))
+        if g["tie_active"] and origin1 and origin1[0] in g["free_origins"] and moved > 0:
+            tied.append(g)
+    gate(f"7d tiepoint run: {len(gba_log)} global BA (every {GBA_EVERY_6A} keyframes), "
+         f"{len(tied)} with the tiepoint edge active, the sub-map's origin free and moved, "
+         "a finite cost", len(tied) >= 1 and all(np.isfinite(g["cost"]) for g in gba_log))
+
+    sysm = make_system(cam, cfg, async_tracking=True, commit_lag=2)
+    launches = run(sysm, dark, n, flush_at=N_WARM)
+    tr = sysm.trackers["SLAM"]
+    total += launches
+    check_blackout("async", tr, launches)
+    lines = frame_lines(tr)
     gate("6a async: the loss shows at commit time (NORMAL>LOST on the first blank frame)",
-         runs[0][0].telemetry[DARK[0]].state == "NORMAL>LOST")
-    gate("6a async: two runs print identical frame lines",
-         lines[0] == lines[1] and runs[0][1] == runs[1][1])
+         tr.telemetry[DARK[0]].state == "NORMAL>LOST")
     first_diff = [next((i for i, (a, b) in enumerate(zip(mine, theirs)) if a != b), None)
-                  for mine, theirs in zip(lines[0], async_lines5)]
+                  for mine, theirs in zip(lines, async_lines5)]
     log(f"phase 6a async against phase 5's async run: first differing row {first_diff[0]}, "
         f"first differing pose {first_diff[1]}"
         + "".join(f"\n  {x}" for k in (0, 1) if first_diff[k] is not None
-                  for x in (lines[0][k][first_diff[k]], async_lines5[k][first_diff[k]])))
+                  for x in (lines[k][first_diff[k]], async_lines5[k][first_diff[k]])))
     gate(f"6a async: up to the blackout the lines are phase 5's async run's ({DARK[0]} rows "
-         "and poses)", lines[0][0][:DARK[0]] == async_lines5[0][:DARK[0]]
-         and lines[0][1][:DARK[0]] == async_lines5[1][:DARK[0]])
+         "and poses)", lines[0][:DARK[0]] == async_lines5[0][:DARK[0]]
+         and lines[1][:DARK[0]] == async_lines5[1][:DARK[0]])
 
     # ---- 6b: forced loss every RESET_INTERVAL frames, from the config
     sysm = make_system(cam, cfg, camera_kw=dict(tracking=TrackingParams(
@@ -1334,52 +1434,9 @@ def phase6(cam, cfg, poses, pairs, tracked, async_lines5):
     torch.cuda.synchronize()
     build_ms = 1e2 * (time.perf_counter() - t)
 
-    # ---- 6d: CG against dense. "sensors" is the window the system built for
-    # 6c's last keyframe, solved by the whole two-phase schedule. "tiepoint"
-    # is constructed (no window the system builds holds a tiepoint edge):
-    # N_TIE_ITERS robust iterations, to run the edge's coupling through both
-    # solvers on the card
-    def problem_of(h, anchor_tie: bool):
-        """The local-BA problem of a held _slot_priors call. With
-        anchor_tie it is changed: the parent's tie keyframe of sub-map 1
-        takes a free slot as a fixed pose and the sub-map's origin is let
-        move, so that the tiepoint edge, at weight TIE_INFO_6D, is what
-        holds the window."""
-        prob, kf_of_slot, slot_used, *_ = mapper_mod._gather_local_ba(
-            h["ms"], h["kf_id"], cam, 16, 2048, cfg.n_levels, cfg.scale_factor)
-        if anchor_tie:
-            tie_a, tie_b, _, tie_valid = sensor_fusion.build_tiepoint_edges(h["ms"])
-            if not tie_valid[1]:
-                return None, slot_used
-            free = int(torch.nonzero(~slot_used)[0])
-            origin = (kf_of_slot == int(tie_b[1])) & slot_used
-            kf_of_slot = kf_of_slot.clone()
-            kf_of_slot[free] = int(tie_a[1])
-            slot_used = slot_used.clone()
-            slot_used[free] = True
-            Tcw = prob.kf_Tcw.clone()
-            Tcw[free] = h["ms"].kf.Tcw[int(tie_a[1])]
-            prob = prob._replace(kf_Tcw=Tcw, kf_fixed=prob.kf_fixed & ~origin)
-        opt_info = OptimizerInfo(tiepoint_info=TIE_INFO_6D) if anchor_tie else h["opt_info"]
-        return prob._replace(priors=slot_priors(
-            h["ms"], h["sensors"], opt_info, kf_of_slot, slot_used)), slot_used
-
-    def first_step_apart(prob):
-        """One linearization of prob at its start, the pose step by each
-        solver: (max|d_cg - d_dense|, max|d_dense|)."""
-        lam = torch.full((), 1e-4, device=prob.kf_Tcw.device)
-        K = prob.kf_Tcw.shape[0]
-        Hpp, b_pose, Y, y, _, _, _, kf_idx = ba._linearize_factors(
-            prob, prob.kf_Tcw, prob.lm_pos, lam, prob.obs.valid, True)
-        Hd, b_pr, Hab = priors.linearize_priors_blocks(prob.kf_Tcw, prob.priors)
-        Hpp, b_pose = Hpp + Hd, b_pose + b_pr
-        S_red, b_red = ba._schur_reduce_dense(Y, y, kf_idx, K, 256)
-        S_red = S_red - priors.tie_offdiag_dense(prob.priors, Hab, K, Hpp.dtype)
-        dense = ba._solve_poses(Hpp, b_pose, S_red, b_red, prob.kf_fixed, lam)
-        cg = ba._solve_poses_cg(Hpp, b_pose, ba._reduced_rhs(Y, y, kf_idx, K), Y, kf_idx,
-                                prob.kf_fixed, lam, priors=prob.priors, Hab=Hab)
-        return float((cg - dense).abs().max()), float(dense.abs().max())
-
+    # ---- 6d: CG against dense on the window the system built for 6c's last
+    # keyframe: the first step, N_SHORT_ITERS robust iterations, then the
+    # whole two-phase schedule
     def solve(prob, solver, n_iters=None):
         """n_iters robust iterations, or the whole two-phase schedule."""
         torch.cuda.synchronize()
@@ -1396,48 +1453,48 @@ def phase6(cam, cfg, poses, pairs, tracked, async_lines5):
         return (abs(float(cg.cost) - float(dense.cost)) / float(dense.cost),
                 float((cg.kf_Tcw - dense.kf_Tcw).abs().max()))
 
-    for name, h, anchor in (("sensors", held_c, False), ("tiepoint (constructed)", held, True)):
-        prob, slot_used = problem_of(h, anchor) if "ms" in h else (None, None)
-        pr = None if prob is None else prob.priors
-        active = pr is not None and bool(
-            pr.tie_valid.any() if anchor else (pr.gps_valid.any() and pr.imu_valid.any()
-                                               and pr.depth_valid.any()))
-        gate(f"6d {name}: a local-BA problem with active priors was taken from "
-             f"{'6a' if anchor else '6c'}'s map", active)
-        if not active:
-            continue
-        log(f"phase 6d {name}: local BA of keyframe {h['kf_id']} ({int(slot_used.sum())} slots, "
-            f"{int((~prob.kf_fixed).sum())} free, {int(prob.lm_valid.sum())} landmarks; prior "
-            f"rows: tie {int(pr.tie_valid.sum())} GPS {int(pr.gps_valid.sum())} IMU "
+    h = held_c
+    prob = pr = None
+    if "ms" in h:
+        prob, kf_of_slot, slot_used, *_ = mapper_mod._gather_local_ba(
+            h["ms"], h["kf_id"], cam, 16, 2048, cfg.n_levels, cfg.scale_factor)
+        pr = slot_priors(h["ms"], h["sensors"], h["opt_info"], kf_of_slot, slot_used)
+        prob = prob._replace(priors=pr)
+    gate("6d: a local-BA problem with active GPS, IMU and depth priors was taken from 6c's "
+         "map", pr is not None and bool(pr.gps_valid.any() and pr.imu_valid.any()
+                                        and pr.depth_valid.any()))
+    if pr is not None:
+        log(f"phase 6d sensors: local BA of keyframe {h['kf_id']} ({int(slot_used.sum())} "
+            f"slots, {int((~prob.kf_fixed).sum())} free, {int(prob.lm_valid.sum())} landmarks; "
+            f"prior rows: tie {int(pr.tie_valid.sum())} GPS {int(pr.gps_valid.sum())} IMU "
             f"{int(pr.imu_valid.sum())} depth {int(pr.depth_valid.sum())}, prior cost at the "
             f"start {float(priors.prior_cost(prob.kf_Tcw, pr)):.6f})")
         d_step, step = first_step_apart(prob)
-        log(f"phase 6d {name}: the first linearization's pose step: max|d_cg - d_dense| "
+        log(f"phase 6d sensors: the first linearization's pose step: max|d_cg - d_dense| "
             f"{d_step:.3e} of max|d_dense| {step:.3e}")
-        gate(f"6d {name}: the CG pose step within {CG_STEP_RTOL} relative of the dense one",
+        gate(f"6d: the CG pose step within {CG_STEP_RTOL} relative of the dense one",
              step > 0 and d_step < CG_STEP_RTOL * step)
-        n_it = N_TIE_ITERS if anchor else N_SHORT_ITERS
-        (dense, ms_d), (cg, ms_c) = solve(prob, "dense", n_it), solve(prob, "cg", n_it)
+        (dense, ms_d), (cg, ms_c) = solve(prob, "dense", N_SHORT_ITERS), solve(
+            prob, "cg", N_SHORT_ITERS)
         d_cost, d_pose = apart(cg, dense)
-        log(f"phase 6d {name}: {n_it} robust iterations: cost dense "
+        log(f"phase 6d sensors: {N_SHORT_ITERS} robust iterations: cost dense "
             f"{float(dense.cost):.4f} cg {float(cg.cost):.4f} (relative {d_cost:.3e}), max|dT| cg "
             f"vs dense {d_pose:.3e} (dense moved the poses by up to "
             f"{float((dense.kf_Tcw - prob.kf_Tcw).abs().max()):.3e}); ms a solve: "
             + json.dumps({"dense": ms_d, "cg": ms_c}))
-        gate(f"6d {name}: after {n_it} robust iterations CG and dense agree: cost "
+        gate(f"6d: after {N_SHORT_ITERS} robust iterations CG and dense agree: cost "
              f"within {CG_COST_RTOL} relative, poses within {CG_POSE_ATOL}",
              d_cost < CG_COST_RTOL and d_pose < CG_POSE_ATOL
              and bool(torch.isfinite(cg.kf_Tcw).all()))
-        if anchor:
-            continue
         (dense, ms_d), (cg, ms_c) = solve(prob, "dense"), solve(prob, "cg")
         d_cost, d_pose = apart(cg, dense)
-        log(f"phase 6d {name}: the whole two-phase schedule: cost dense {float(dense.cost):.4f} "
-            f"cg {float(cg.cost):.4f} (relative {d_cost:.3e}), max|dT| cg vs dense {d_pose:.3e}, "
-            f"max|dX| {float((cg.lm_pos - dense.lm_pos).abs().max()):.3e} (dense moved the "
-            f"poses by up to {float((dense.kf_Tcw - prob.kf_Tcw).abs().max()):.3e}); ms a "
+        log(f"phase 6d sensors: the whole two-phase schedule: cost dense "
+            f"{float(dense.cost):.4f} cg {float(cg.cost):.4f} (relative {d_cost:.3e}), max|dT| "
+            f"cg vs dense {d_pose:.3e}, max|dX| {float((cg.lm_pos - dense.lm_pos).abs().max()):.3e}"
+            f" (dense moved the poses by up to "
+            f"{float((dense.kf_Tcw - prob.kf_Tcw).abs().max()):.3e}); ms a "
             "two-phase solve: " + json.dumps({"dense": ms_d, "cg": ms_c}))
-        gate(f"6d {name}: after the whole schedule CG's cost is finite and no more than "
+        gate(f"6d: after the whole schedule CG's cost is finite and no more than "
              f"{CG_WHOLE_COST_RTOL} relative above the dense solve's",
              bool(torch.isfinite(cg.kf_Tcw).all()) and np.isfinite(float(cg.cost))
              and float(cg.cost) < float(dense.cost) * (1 + CG_WHOLE_COST_RTOL))
@@ -1476,6 +1533,205 @@ def phase6(cam, cfg, poses, pairs, tracked, async_lines5):
     return total
 
 
+def sim3_errors(est, truth):
+    """Per-row camera-centre error after a sim3 alignment of est to truth:
+    (ATE, errors)."""
+    from hyslam_tpu_torch.geometry import sim3
+    from hyslam_tpu_torch.geometry.horn import horn_sim3
+    from hyslam_tpu_torch.io.evaluate import ate_rmse, camera_centers
+
+    pe = torch.from_numpy(camera_centers(est).astype(np.float64))
+    pg = camera_centers(truth).astype(np.float64)
+    d = np.linalg.norm(sim3.apply(horn_sim3(pe, torch.from_numpy(pg)), pe).numpy() - pg,
+                       axis=-1)
+    return ate_rmse(est, truth, align="sim3"), d
+
+
+def phase7(cam, cfg, poses, pairs):
+    """The monocular camera and global BA at K_BIG; see the module
+    docstring. Returns the K1 launches of its gated runs."""
+    from hyslam_tpu_torch.core.mapstate import MapCaps
+    from hyslam_tpu_torch.estimators import pnp
+    from hyslam_tpu_torch.io.config import OptimizerInfo
+    from hyslam_tpu_torch.ops.pose_opt_cuda import pose_optimization_cuda
+    from hyslam_tpu_torch.slam import global_ba
+    from hyslam_tpu_torch.slam import system as system_mod
+    from hyslam_tpu_torch.slam.tracker import State
+    from hyslam_tpu_torch.solver import ba
+    from hyslam_tpu_torch.solver.pose_opt import pose_optimization, pose_optimization_fast
+    from hyslam_tpu_torch.utils import synth
+
+    failed = []
+    total = 0
+
+    def gate(name, ok):
+        log(f"phase 7 gate {'ok' if ok else 'FAILED'}: {name}")
+        if not ok:
+            failed.append(name)
+
+    # ---- 7a / 7b: the left images through a monocular System, sync and async
+    mono = synth.blackout(pairs[:N_MONO, 0], *DARK_MONO)
+    held = {}
+
+    def holding_refinement(*args):
+        held["pnp"] = args
+        return pose_optimization_fast(*args)
+
+    def run_mono(name, **kw):
+        sysm = make_system(cam, cfg, camera_kw=dict(mono=True, bf=0.0), **kw)
+        tr = sysm.trackers["SLAM"]
+        pnp.pose_optimization_fast = holding_refinement
+        try:
+            t = time.perf_counter()
+            pose_optimization_cuda.launches = 0
+            for i in range(N_MONO):
+                sysm.track_monocular(mono[i], FRAME_DT * i, frame_id=i)
+            sysm.flush()
+            launches = pose_optimization_cuda.launches
+            secs = time.perf_counter() - t
+        finally:
+            pnp.pose_optimization_fast = pose_optimization_fast
+        tels = tr.telemetry
+        states = [t.state for t in tels]
+        size = int(tr.traj.size)
+        est = tr.traj.Tcw[:size].cpu().numpy()
+        idx = np.rint(tr.traj.t[:size].cpu().numpy() / FRAME_DT).astype(int)
+        ate, errs = sim3_errors(est, np.stack(poses)[idx]) if size > 2 else (float("nan"), [0])
+        init = next((t.frame_id for t in tels if t.state == "INITIALIZE" and t.kf_inserted >= 0),
+                    None)
+        reloc = [t.frame_id for t in tels if ">RELOC_OK" in t.state]
+        lost = [i for i in range(init or 0, N_MONO) if i not in set(idx.tolist())]
+        n_kf = sum(t.kf_inserted >= 0 for t in tels)
+        worst = int(np.argmax(errs))
+        for t in tels:
+            log(f"  7{name} frame {t.frame_id}: {t.state} motion {t.n_motion} inliers "
+                f"{t.n_inliers} local {t.n_local} kf {t.kf_inserted}")
+        log(f"phase 7{name} monocular {'async' if name == 'b' else 'sync'}: initialized at frame "
+            f"{init}, {n_kf} keyframes, {size} trajectory poses, frames without a pose after "
+            f"the initialization {lost}, >RELOC_OK at frames {reloc}, relocalization log "
+            f"{tr.reloc_log}, ATE (sim3) {ate:.6f} m, worst frame {int(idx[worst])} at "
+            f"{errs[worst]:.6f} m, K1 launches {launches}, expected {expected_launches(tr)}, "
+            f"{secs:.1f} s")
+        after = [t for t in tels if t.frame_id > (reloc[0] if reloc else N_MONO)]
+        gate(f"7{name}: initialized before the blackout, at least {MIN_KEYFRAMES} keyframes",
+             init is not None and init < DARK_MONO[0] and n_kf >= MIN_KEYFRAMES)
+        gate(f"7{name}: {N_MONO} rows in frame order, one >RELOC_OK within {MAX_RELOC_DELAY} "
+             "frames of the blackout's end, every later frame tracked, state NORMAL",
+             [t.frame_id for t in tels] == list(range(N_MONO)) and len(reloc) == 1
+             and DARK_MONO[1] <= reloc[0] < DARK_MONO[1] + MAX_RELOC_DELAY
+             and all(tracked_row(t) for t in after) and tr.state == State.NORMAL)
+        gate(f"7{name}: ATE (sim3) < {MAX_ATE_MONO} m and every frame < {MAX_T_MONO} m",
+             ate < MAX_ATE_MONO and max(errs) < MAX_T_MONO)
+        gate(f"7{name}: K1 launches {launches} == {expected_launches(tr)} from the telemetry and "
+             "the relocalization log", launches == expected_launches(tr) and launches > 0)
+        return sysm, tr, launches, states
+
+    sysm_a, tr_a, launches, _ = run_mono("a")
+    total += launches
+    problems = {"mono tracking (7a's last frame, its local-map solve)": tr_a.last_result.problem,
+                "relocalization PnP refinement (7a)": held.get("pnp")}
+    _, tr_b, launches, states_b = run_mono("b", async_tracking=True, commit_lag=2)
+    total += launches
+    gate("7b: the loss shows at commit time (NORMAL>LOST on the first blank frame)",
+         states_b[DARK_MONO[0]] == "NORMAL>LOST")
+
+    # ---- 7c: K1 against the plain solver on 7a's problems
+    for name, prob in problems.items():
+        if prob is None:
+            gate(f"7c {name}: the problem was held", False)
+            continue
+        stereo = prob[-1]
+        k, q = pose_optimization_fast(*prob), pose_optimization(*prob)
+        err = float((k.Tcw - q.Tcw).abs().max())
+        d_inl = abs(int(k.num_inliers) - int(q.num_inliers))
+        ms_k = cuda_ms(lambda: pose_optimization_fast(*prob), N_TIMED)
+        ms_q = cuda_ms(lambda: pose_optimization(*prob), 5)
+        log(f"phase 7c {name}: {int(prob[-2].sum())} valid of {prob[-2].shape[0]} "
+            f"observations, stereo {int(stereo.sum())}; kernel vs plain max|dT| {err:.3e}, "
+            f"inliers {int(k.num_inliers)} vs {int(q.num_inliers)}; ms a call "
+            + json.dumps({"kernel": ms_k, "plain": ms_q}))
+        gate(f"7c {name}: no stereo observation, kernel within {MAX_ABS_DT_PROBLEM} and "
+             f"{MAX_D_INLIERS_PROBLEM} inlier of the plain solver",
+             not bool(stereo.any()) and err < MAX_ABS_DT_PROBLEM
+             and d_inl <= MAX_D_INLIERS_PROBLEM)
+
+    # ---- 7d: global BA at K_BIG through the System: solver="auto" is CG
+    solves = {"cg": 0, "dense": 0}
+    real = {"cg": ba._solve_poses_cg, "dense": ba._solve_poses}
+    gba = []
+
+    def counting(kind):
+        def solve(*a, **kw):
+            solves[kind] += 1
+            return real[kind](*a, **kw)
+        return solve
+
+    run_global_ba = system_mod.run_global_ba
+
+    def spied_run(ms, *a, **kw):
+        ba._solve_poses_cg, ba._solve_poses = counting("cg"), counting("dense")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            out = run_global_ba(ms, *a, **kw)
+            torch.cuda.synchronize()
+        finally:
+            ba._solve_poses_cg, ba._solve_poses = real["cg"], real["dense"]
+        gba.append(dict(ms=ms, args=a, kw=kw, cost=out[1],
+                        t=1e3 * (time.perf_counter() - t), solves=dict(solves)))
+        return out
+
+    caps = (K_BIG,) + TRACK_CAPS[1:]
+    sysm = make_system(cam, cfg, caps=caps, optimizer=OptimizerInfo(realtime=False,
+                                                                    gba_interval=N_BIG))
+    tr = sysm.trackers["SLAM"]
+    mapper_ms = time_integrate(tr)
+    system_mod.run_global_ba = spied_run
+    try:
+        pose_optimization_cuda.launches = 0
+        for i in range(N_BIG):
+            sysm.track_stereo(pairs[i, 0], pairs[i, 1], FRAME_DT * i, frame_id=i)
+        sysm.flush()
+        launches = pose_optimization_cuda.launches
+    finally:
+        system_mod.run_global_ba = run_global_ba
+    total += launches
+    n_kf = sum(t.kf_inserted >= 0 for t in tr.telemetry)
+    gate(f"7d K={K_BIG}: {N_BIG} frames tracked, K1 launches as the telemetry calls for, one "
+         "global BA, by CG solves only",
+         tr.state == State.NORMAL and launches == expected_launches(tr) and len(gba) == 1
+         and gba[0]["solves"]["cg"] > 0 and gba[0]["solves"]["dense"] == 0)
+    if gba:
+        g = gba[0]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, cost_dense = global_ba.run_global_ba(g["ms"], *g["args"], solver="dense", **g["kw"])
+        torch.cuda.synchronize()
+        ms_dense = 1e3 * (time.perf_counter() - t)
+        prob = global_ba.build_global_problem(g["ms"], sysm.cameras["SLAM"],
+                                              n_levels=cfg.n_levels,
+                                              scale_factor=cfg.scale_factor)
+        d_step, step = first_step_apart(prob, chunk=512)
+        ms_int = [m for _, m, _ in mapper_ms[3:]]
+        log(f"phase 7d K={K_BIG}: global BA over {n_kf} keyframes, "
+            f"{int(prob.lm_valid.sum())} landmarks, {int((~prob.kf_fixed).sum())} free poses: "
+            f"the first linearization's pose step max|d_cg - d_dense| {d_step:.3e} of "
+            f"max|d_dense| {step:.3e}; cost cg {g['cost']:.4f} dense {cost_dense:.4f} (relative "
+            f"{(g['cost'] - cost_dense) / cost_dense:.3e}); {g['solves']['cg']} CG solves")
+        log("phase 7d timing: " + json.dumps({
+            "ms_global_ba_cg": g["t"], "ms_global_ba_dense": ms_dense,
+            f"median_ms_integrate_keyframe_K{K_BIG}": statistics.median(ms_int) if ms_int
+            else None, "mapper_calls_timed": len(ms_int)}))
+        gate(f"7d K={K_BIG}: the CG pose step within {CG_STEP_RTOL} relative of the dense one",
+             step > 0 and d_step < CG_STEP_RTOL * step)
+        gate(f"7d K={K_BIG}: after the whole schedule CG's cost is finite and no more than "
+             f"{CG_WHOLE_COST_RTOL} relative above the dense global BA's",
+             np.isfinite(g["cost"]) and g["cost"] < cost_dense * (1 + CG_WHOLE_COST_RTOL))
+    if failed:
+        raise AssertionError("phase 7 failed: " + "; ".join(failed))
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1504,6 +1760,7 @@ def main() -> int:
     launches5, async_lines = timed("5", phase5, cam, cfg, poses, pairs, pts, tracked)
     launches += tracked["launches"] + launches5
     launches += timed("6", phase6, cam, cfg, poses, pairs, tracked, async_lines)
+    launches += timed("7", phase7, cam, cfg, poses, pairs)
     log(f"seconds a phase: {json.dumps(took)}")
     log(json.dumps({"kernels": [{
         "name": "pose_opt",

@@ -4,7 +4,7 @@ x' = s * R @ x + t (counterpart of ``hyslam_tpu/geometry/sim3.py``).
 Packed representation: [..., 8] = (s, qw, qx, qy, qz, tx, ty, tz). Ported is
 what the Horn alignment and ``io.evaluate.ate_rmse(align="sim3")`` use:
 ``pack``, ``unpack`` and ``apply``. The group operations, ``exp`` and
-``log`` come with loop closing (ROADMAP step 15).
+``log`` come with loop closing (ROADMAP step 15b).
 """
 
 from __future__ import annotations

@@ -47,7 +47,7 @@ class CameraConfig:
     Tcam: Optional[list] = None  # 4x4 rig extrinsic body->camera
     extractor: ExtractorConfig = field(default_factory=ExtractorConfig)
     init_feature_factor: int = 3  # feature-budget multiplier while a
-                                  # monocular tracker initializes (step 13)
+                                  # monocular tracker initializes
     policy: KeyFramePolicyParams = field(default_factory=KeyFramePolicyParams)
     tracking: TrackingParams = field(default_factory=TrackingParams)
         # the camera's resolved state/strategy parameter sets

@@ -1,5 +1,5 @@
 """Map initializers (counterpart of ``hyslam_tpu/slam/initializers.py``;
-the stereo initializer only: the monocular one is ROADMAP step 13)."""
+the stereo initializer; the monocular one is ``slam/mono_init.py``)."""
 
 from __future__ import annotations
 

@@ -1,14 +1,19 @@
-"""System: the public API over the stereo / RGB-D pipeline (counterpart of
-``hyslam_tpu/slam/system.py``).
+"""System: the public API over the stereo / RGB-D / monocular pipeline
+(counterpart of ``hyslam_tpu/slam/system.py``).
 
 Builds the camera, feature family and tracker from a ``SystemConfig``, runs
 the image front end (grayscale, ORB extraction, stereo match or depth
-sampling) and hands each frame to the tracker: synchronously
+sampling; a monocular camera initializing takes ``init_feature_factor``
+times the features) and hands each frame to the tracker: synchronously
 (``Tracker.track``, one telemetry row returned per frame) or through the
 async tracking loop (``async_tracking=True``: ``Tracker.track_async``, rows
-committed ``commit_lag`` frames later, ``flush()`` to settle). Also the data
-exporters (trajectory TSV / TUM, COLMAP, Agisoft XML, map points), map and
-checkpoint files, and the TSV telemetry logs.
+committed ``commit_lag`` frames later, ``flush()`` to settle). After every
+keyframe comes the map maintenance: with ``optimizer.realtime=False`` a
+global BA every ``gba_interval`` keyframes, in async mode too (between
+frames, after the frames in flight are committed; the JAX package's async
+mode never reaches it). Also the data exporters (trajectory TSV / TUM,
+COLMAP, Agisoft XML, map points), map and checkpoint files, and the TSV
+telemetry logs.
 
 The system lives on ``config.device``; with none given it takes the current
 CUDA card and raises where there is none. It is single-threaded and uses one
@@ -16,11 +21,10 @@ stream.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
 step: loop closing (``enable_loop_closing=True``, the config's default, so
-callers pass ``False``; steps 14-15), periodic global BA
-(``optimizer.realtime=False``, step 15), the threaded pipeline
-(``pipelined=True``, step 19), monocular cameras and ``track_monocular``
-(step 13), more than one camera, ``place_imaging_frame`` and
-``run_imaging_bundle_adjustment`` (step 17). Every ``track_*`` entry takes
+callers pass ``False``; steps 14b-15b), the threaded pipeline
+(``pipelined=True``, step 19), more than one camera,
+``place_imaging_frame`` and ``run_imaging_bundle_adjustment`` (step 17),
+the SURF family (step 18). Every ``track_*`` entry takes
 ``sensor_data`` (a ``core.sensordata.SensorData``: GPS, IMU orientation,
 pressure depth), which rides the frame to its keyframe and feeds local BA's
 pose priors under the weights of ``config.optimizer``. With
@@ -45,7 +49,8 @@ from hyslam_tpu_torch.io import export as EXP
 from hyslam_tpu_torch.io.config import SystemConfig
 from hyslam_tpu_torch.ops.pyramid import preprocess_image
 from hyslam_tpu_torch.ops.stereo import match_stereo_refined
-from hyslam_tpu_torch.slam.tracker import Tracker
+from hyslam_tpu_torch.slam.global_ba import run_global_ba
+from hyslam_tpu_torch.slam.tracker import State, Tracker
 from hyslam_tpu_torch.utils.telemetry import MappingLog, StageTimer, TrackingLog
 
 
@@ -53,25 +58,22 @@ def _unported(config: SystemConfig) -> None:
     """Raise for every option of the config that this port does not serve."""
     if config.enable_loop_closing:
         raise NotImplementedError(
-            "loop closing (place recognition, Sim3, pose graph, global BA) is "
-            "ROADMAP steps 14-15, not ported: pass enable_loop_closing=False")
-    if not config.optimizer.realtime:
-        raise NotImplementedError(
-            "periodic global BA (optimizer.realtime=False) is ROADMAP step 15")
+            "loop closing (BoW place recognition, ROADMAP step 14b; Sim3, the pose "
+            "graph and loop correction, step 15b) is not ported: pass "
+            "enable_loop_closing=False")
     if config.pipelined:
         raise NotImplementedError(
             "the threaded pipeline (pipelined=True) is ROADMAP step 19")
     if len(config.cameras) != 1:
         raise NotImplementedError(
             "more than one camera (the Imaging camera) is ROADMAP step 17")
-    if any(cc.mono for cc in config.cameras.values()):
-        raise NotImplementedError("a monocular camera is ROADMAP step 13")
 
 
 class System:
-    """One SLAM system over one stereo or RGB-D camera, built from a
-    ``SystemConfig``. Feed it frames with ``track_stereo`` / ``track_rgbd``
-    (or features with ``track_features``), call ``flush()`` before reading
+    """One SLAM system over one stereo, RGB-D or monocular camera, built from
+    a ``SystemConfig``. Feed it frames with ``track_stereo`` /
+    ``track_rgbd`` / ``track_monocular`` (or features with
+    ``track_features``), call ``flush()`` before reading
     its trackers or stopping a clock, and ``shutdown()`` at the end. With
     ``config.run_data_dir`` set it writes the TSV telemetry logs
     (synchronous mode); the annotated frame dumps are not written (they
@@ -93,6 +95,8 @@ class System:
         self.timer = None
         self._open_logs()
         self._families = {}   # per-camera feature family
+        self._init_families = {}   # the monocular initializer's, per camera
+        self._pending_kfs = {}     # async mode: keyframes awaiting maintenance
         for name, cc in self.config.cameras.items():
             self.cameras[name] = cc.camera()
             self._families[name] = make_family(cc.extractor)
@@ -100,9 +104,10 @@ class System:
 
     def _make_tracker(self, name: str) -> Tracker:
         """The camera's tracker, as the config describes it (for __init__
-        and reset alike)."""
+        and reset alike). In async mode the keyframes its commits make are
+        queued for the map maintenance between frames."""
         cc = self.config.cameras[name]
-        return Tracker(
+        tracker = Tracker(
             cam=self.cameras[name],
             cam_id=list(self.config.cameras).index(name),
             caps=self.config.caps,
@@ -116,14 +121,20 @@ class System:
             mapper_params=self.config.mapper,
             device=self.device,
         )
+        self._pending_kfs[name] = []
+        if self.config.async_tracking:
+            tracker.on_keyframe = self._pending_kfs[name].append
+        return tracker
 
     def flush(self):
-        """Async mode: commit every frame in flight, then wait until the
-        device has finished all queued work (use before reading trackers or
-        maps mid-run, and before stopping a clock). In synchronous mode only
-        the wait."""
-        for t in self.trackers.values():
+        """Async mode: commit every frame in flight and run the map
+        maintenance of the keyframes they made, then wait until the device
+        has finished all queued work (use before reading trackers or maps
+        mid-run, and before stopping a clock). In synchronous mode only the
+        wait."""
+        for name, t in self.trackers.items():
             t.drain_pending()
+            self._maintain_pending(name)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -186,8 +197,16 @@ class System:
 
     def track_monocular(self, img, timestamp: float, camera: str = "SLAM",
                         frame_id: int | None = None, sensor_data=None):
-        raise NotImplementedError(
-            "monocular tracking (mono initializer, two-view) is ROADMAP step 13")
+        """Monocular entry: grayscale, extraction, then track. While the
+        tracker initializes, the extractor takes ``init_feature_factor``
+        times the features (capped at the arena's F)."""
+        cc = self.config.cameras[camera]
+        gray = self._image(img, self.cameras[camera].scale)
+        fam = self._families[camera]
+        if self.trackers[camera].state == State.INITIALIZE and cc.init_feature_factor > 1:
+            fam = self._init_family(camera)
+        feats = fam.extract(gray, capacity=self._capacity(cc))
+        return self.track_features(feats, timestamp, camera, frame_id, sensor_data)
 
     def track_features(self, feats: FrameFeatures, timestamp: float,
                        camera: str = "SLAM", frame_id: int | None = None,
@@ -201,8 +220,12 @@ class System:
             frame_id = self._frame_counter
         self._frame_counter += 1
         if self.config.async_tracking:
-            return self.trackers[camera].track_async(feats, timestamp, frame_id,
-                                                     sensor_data=sensor_data)
+            tel = self.trackers[camera].track_async(feats, timestamp, frame_id,
+                                                    sensor_data=sensor_data)
+            if tel is not None and tel.kf_inserted >= 0:   # a cold state's keyframe
+                self._pending_kfs[camera].append(tel.kf_inserted)
+            self._maintain_pending(camera)
+            return tel
         return self._track_features_inline(feats, timestamp, camera, frame_id,
                                            sensor_data)
 
@@ -222,8 +245,41 @@ class System:
         if tel.kf_inserted >= 0:
             if self._mapping_log is not None and tel.mapper_stats:
                 self._mapping_log.log(camera, tel.kf_inserted, tel.mapper_stats)
-            self._kfs_since_gba += 1
+            self._on_new_keyframe(camera)
         return tel
+
+    def _maintain_pending(self, camera: str):
+        """Async mode: the map maintenance of the keyframes committed since
+        the last call, in the order they were made."""
+        pending = self._pending_kfs[camera]
+        while pending:
+            pending.pop(0)
+            self._on_new_keyframe(camera)
+
+    def _on_new_keyframe(self, camera: str):
+        if self._maintain_map(camera):
+            self._refresh_trajectory(camera)
+
+    def _maintain_map(self, camera: str) -> bool:
+        """The map maintenance after a keyframe: in the offline mode
+        (``optimizer.realtime=False``) a global BA every ``gba_interval``
+        keyframes. Loop closing, its other half, is ROADMAP step 15b (the
+        constructor refuses it). In async mode the frames in flight are
+        committed first: the global BA then holds every keyframe made so
+        far, and no frame is left in flight with a pose of the map before it.
+        Returns whether the map moved."""
+        self._kfs_since_gba += 1
+        opt = self.config.optimizer
+        if opt.realtime or self._kfs_since_gba < opt.gba_interval:
+            return False
+        tracker = self.trackers[camera]
+        tracker.drain_pending()
+        ex = self.config.cameras[camera].extractor
+        tracker.ms, _ = run_global_ba(
+            tracker.ms, self.cameras[camera], sensors=tracker.sensors, opt_info=opt,
+            n_levels=ex.n_levels, scale_factor=ex.scale_factor)
+        self._kfs_since_gba = 0
+        return True
 
     def _refresh_trajectory(self, camera: str):
         """Re-derive every trajectory pose from its (re-optimized) reference
@@ -334,3 +390,13 @@ class System:
         if cc.extractor.n_features > cap:
             raise ValueError("feature budget exceeds arena capacity F")
         return cap
+
+    def _init_family(self, camera: str):
+        """The feature family of a monocular camera's initialization:
+        ``init_feature_factor`` times the features, capped at the arena's F
+        so that frame shapes stay the same."""
+        if camera not in self._init_families:
+            cc = self.config.cameras[camera]
+            n = min(cc.extractor.n_features * cc.init_feature_factor, self.config.caps.F)
+            self._init_families[camera] = make_family(cc.extractor._replace(n_features=n))
+        return self._init_families[camera]

@@ -3,10 +3,15 @@
 and async).
 
   INITIALIZE -> POSTINIT (5 forced-keyframe frames) -> NORMAL
-  NORMAL --loss--> REINITIALIZE: a new registered sub-map at the
+  NORMAL --loss--> REINITIALIZE (stereo): a new registered sub-map at the
                    velocity-extrapolated pose, tied to the last reference
                    keyframe by a tiepoint that BA carries as a pose prior
+  NORMAL --loss--> RELOCALIZE (monocular): PnP against ranked keyframes,
+                   then NORMAL
   NULL: frames of an accessory camera while the SLAM camera is lost
+
+A stereo camera initializes from one frame's stereo depth, a monocular one
+from two frames (``slam.mono_init``: the two-view estimator, median depth 1).
 
 A host-side state machine sequences the strategies, the keyframe policy and
 the mapper. ``track`` reads the packed decision counters back once per
@@ -22,8 +27,8 @@ to the keyframe made from it and feeds local BA's pose priors, weighted by
 injection).
 
 Not ported yet, each raising NotImplementedError where it would be entered:
-monocular tracking (ROADMAP step 13), RELOCALIZE (step 14), the threaded
-pipeline's ``mapping_status`` hook (step 19).
+the BoW place recognizer in relocalization (a ``recognizer``, ROADMAP step
+14b), the threaded pipeline's ``mapping_status`` hook (step 19).
 """
 
 from __future__ import annotations
@@ -52,6 +57,8 @@ from hyslam_tpu_torch.slam.keyframe_policy import (
     seed_close_landmarks,
 )
 from hyslam_tpu_torch.slam.mapper import Mapper, MapperParams
+from hyslam_tpu_torch.slam.mono_init import MonoInitializer
+from hyslam_tpu_torch.slam.relocalization import try_relocalize
 from hyslam_tpu_torch.slam.strategies import (
     DevTrackState,
     TrackResult,
@@ -76,7 +83,6 @@ class State(enum.Enum):
 POSTINIT_FRAMES = 5          # TrackingStatePostInitialization hold
 
 _NOT_PORTED = {
-    State.RELOCALIZE: "RELOCALIZE (place recognition) is ROADMAP step 14",
     State.NO_IMAGES_YET: "NO_IMAGES_YET is not a tracking state",
 }
 
@@ -117,7 +123,7 @@ class Tracker:
     cam: Camera
     cam_id: int = 0
     caps: MapCaps = MapCaps()
-    is_mono: bool = False         # monocular: ROADMAP step 13
+    is_mono: bool = False         # monocular: two-view init, RELOCALIZE on a loss
     policy: KeyFramePolicyParams = field(default_factory=KeyFramePolicyParams)
     reset_interval: int = 0       # forced-loss fault injection: every N frames
     opt_info: object = None       # OptimizerInfo: the weights of the sensor
@@ -141,9 +147,6 @@ class Tracker:
     device: object = None         # where the map state lives (default: the card)
 
     def __post_init__(self):
-        if self.is_mono:
-            raise NotImplementedError(
-                "monocular tracking (mono initializer) is ROADMAP step 13, not ported")
         # fault injection configured through the params tree; the explicit
         # field wins when set
         if not self.reset_interval and self.params.normal.reset_interval > 0:
@@ -158,7 +161,7 @@ class Tracker:
         self._pending_sensor = None   # SensorData of the current frame
         self.traj = TJ.empty_trajectory(device=self.device)
         self.mapper = Mapper(self.cam, params=self.mapper_params,
-                             n_levels=self.n_levels,
+                             is_mono=self.is_mono, n_levels=self.n_levels,
                              scale_factor=self.scale_factor)
         self.state = State.INITIALIZE
         self.last_feats: Optional[FrameFeatures] = None
@@ -182,6 +185,10 @@ class Tracker:
         self._has_priors = False  # sensor readings / registered sub-maps
                                   # exist: local BA takes the prior path
         self._fetch_free: list = []   # pinned (buffer, event) pairs not in use
+        self._mono_init: Optional[MonoInitializer] = None
+        self.recognizer = None        # the BoW place recognizer: step 14b
+        self.reloc_log: list = []     # per RELOCALIZE frame: its frame id,
+                                      # try_relocalize's stats and the outcome
 
     # -- public -------------------------------------------------------------
 
@@ -201,6 +208,8 @@ class Tracker:
             self._do_normal(feats, timestamp, frame_id, tel)
         elif self.state == State.REINITIALIZE:
             self._do_reinitialize(feats, timestamp, frame_id, tel)
+        elif self.state == State.RELOCALIZE:
+            self._do_relocalize(feats, timestamp, frame_id, tel)
         # State.NULL: the frame is counted and nothing else
         self.telemetry.append(tel)
         return tel
@@ -216,7 +225,14 @@ class Tracker:
         """Stereo initialization at Tcw0 (default the origin), with
         ``as_submap`` in a new sub-map that is registered at once, tied to
         keyframe ``tie_kf``. On too little depth the map (a sub-map opened
-        here included) stays as it was and so does the state."""
+        here included) stays as it was and so does the state. A monocular
+        tracker feeds the frame to its two-frame initializer instead."""
+        if self.is_mono:
+            kf_id = self._mono_initialize(feats, timestamp, frame_id)
+            if kf_id >= 0:
+                self._initialized(feats, timestamp, frame_id, tel, kf_id,
+                                  self.ms.kf.Tcw[kf_id])
+            return
         if as_submap and int(self.ms.maps.n_maps) >= M.MAX_MAPS:
             # the sub-map table is full: re-initialize within the active map
             # (a map id past MAX_MAPS would poison every walk of the table)
@@ -250,7 +266,22 @@ class Tracker:
             self._has_priors = True   # tiepoint edges exist now
         self.ms = ms
         tel.n_seeded = n
-        self.last_Tcw = self.ms.kf.Tcw[kf_id] if Tcw0 is None else Tcw0
+        self._initialized(feats, timestamp, frame_id, tel, kf_id,
+                          self.ms.kf.Tcw[kf_id] if Tcw0 is None else Tcw0)
+
+    def _mono_initialize(self, feats, timestamp, frame_id) -> int:
+        """One frame through the two-frame initializer: the second
+        keyframe's id once it has made the map, else -1."""
+        if self._mono_init is None:
+            self._mono_init = MonoInitializer(self.cam)
+        done, self.ms, kf_ids = self._mono_init.feed(self.ms, feats, timestamp,
+                                                     frame_id, self.cam_id)
+        return kf_ids[-1] if done else -1
+
+    def _initialized(self, feats, timestamp, frame_id, tel, kf_id: int, Tcw):
+        """The tracker's state after an initialization made keyframe kf_id
+        with the frame at pose Tcw: POSTINIT."""
+        self.last_Tcw = Tcw
         self.ref_kf = kf_id
         self.last_ref_kf = kf_id
         self.last_Tcr = torch.eye(4, dtype=torch.float32, device=self.device)
@@ -308,7 +339,7 @@ class Tracker:
             n_inliers=n_inliers, frame_id=frame_id,
             last_kf_frame_id=self.last_kf_frame_id, n_kfs_in_map=n_kfs,
             n_tracked_close=n_tracked_close, n_nontracked_close=n_nontracked_close,
-            mapping_idle=True, mapping_queue_len=0, is_mono=False,
+            mapping_idle=True, mapping_queue_len=0, is_mono=self.is_mono,
             force=self.state == State.POSTINIT)
         kf_id = -1
         if need_new_keyframe(inp, self.policy):
@@ -330,16 +361,17 @@ class Tracker:
                 self.state = State.NORMAL
 
     def _insert_keyframe(self, feats, tr, timestamp, frame_id, tel) -> int:
-        """Add the frame as a keyframe, seed its close stereo points, and
-        run the mapper's jobs on it. Returns the keyframe id, or -1 when
-        the keyframe arena is full."""
+        """Add the frame as a keyframe, seed its close stereo points (a
+        stereo camera's), and run the mapper's jobs on it. Returns the
+        keyframe id, or -1 when the keyframe arena is full."""
         kf_id = int(self.ms.next_kf)
         if kf_id >= self.caps.K:
             return -1
         ms, _ = M.add_keyframe(self.ms, feats, tr.Tcw, timestamp, frame_id,
                                self.cam_id, tr.lm_id)
-        ms, n_seeded = seed_close_landmarks(ms, kf_id, self.cam)
-        tel.n_seeded = int(n_seeded)
+        if not self.is_mono:
+            ms, n_seeded = seed_close_landmarks(ms, kf_id, self.cam)
+            tel.n_seeded = int(n_seeded)
         ms, tel.mapper_stats = self.mapper.integrate_keyframe(
             ms, kf_id, sensors=self.sensors, opt_info=self.opt_info)
         self.ms = ms
@@ -356,8 +388,9 @@ class Tracker:
         """Dispatch-only tracking for NORMAL/POSTINIT: nothing of the frame
         it dispatches is read here; its telemetry row appears in
         ``self.telemetry`` at commit time, ``commit_lag`` frames later, and
-        None is returned. The cold states (INITIALIZE, REINITIALIZE) drain
-        the pending window and run ``track``, returning its row."""
+        None is returned. The cold states (INITIALIZE, REINITIALIZE,
+        RELOCALIZE) drain the pending window and run ``track``, returning its
+        row."""
         if self.state not in (State.NORMAL, State.POSTINIT):
             self.drain_pending()
             return self.track(feats, timestamp, frame_id, sensor_data=sensor_data)
@@ -488,7 +521,7 @@ class Tracker:
             n_inliers=s[2], frame_id=p.frame_id,
             last_kf_frame_id=self.last_kf_frame_id, n_kfs_in_map=s[7],
             n_tracked_close=s[4], n_nontracked_close=s[5],
-            mapping_idle=not busy, mapping_queue_len=int(busy), is_mono=False,
+            mapping_idle=not busy, mapping_queue_len=int(busy), is_mono=self.is_mono,
             force=p.force_kf)
         # arena-full guard: the cursor only grows, and an insert past K
         # would clamp in the arena while the host mirror ran on
@@ -497,7 +530,7 @@ class Tracker:
         return tel
 
     def _insert_keyframe_deferred(self, p: _Pending, tel):
-        """Keyframe insertion, close-point seeding and the mapper's jobs for
+        """Keyframe insertion, close-point seeding (stereo) and the mapper's jobs for
         a committed frame, whose features, pose and associations are still
         held by its pending record. The keyframe id is the host mirror of
         the allocation cursor, and the counters are not fetched: this adds
@@ -505,7 +538,8 @@ class Tracker:
         kf_id = self._kf_mirror
         ms, _ = M.add_keyframe(self.ms, p.feats, p.Tcw, p.timestamp, p.frame_id,
                                self.cam_id, p.lm_id)
-        ms, _ = seed_close_landmarks(ms, kf_id, self.cam)
+        if not self.is_mono:
+            ms, _ = seed_close_landmarks(ms, kf_id, self.cam)
         self._kf_mirror += 1
         self._attach_sensor(kf_id, p.sensor_data)
         ms, stats = self.mapper.integrate_keyframe(
@@ -520,8 +554,8 @@ class Tracker:
 
     def _lose_tracking(self):
         """Transition on loss: a stereo camera re-initializes in a registered
-        sub-map (a monocular one would relocalize, ROADMAP steps 13-14)."""
-        self.state = State.REINITIALIZE
+        sub-map, a monocular one relocalizes."""
+        self.state = State.RELOCALIZE if self.is_mono else State.REINITIALIZE
 
     def reenter_initialize(self):
         """Re-enter INITIALIZE without discarding the map (an accessory
@@ -531,6 +565,8 @@ class Tracker:
         parent being known yet, until imaging BA aligns and registers it
         (ROADMAP step 17); until then global BA holds its origin fixed."""
         self.state = State.INITIALIZE
+        if self._mono_init is not None:
+            self._mono_init.ref = None   # the frame from before the loss is stale
         n_kf, active, n_maps = torch.stack(
             [self.ms.next_kf, self.ms.maps.active, self.ms.maps.n_maps]).tolist()
         if n_kf == 0:
@@ -551,3 +587,24 @@ class Tracker:
                             as_submap=True, tie_kf=self.last_ref_kf)
         if self.state == State.POSTINIT:
             tel.state += ">REINIT_OK"
+
+    def _do_relocalize(self, feats, timestamp, frame_id, tel):
+        """PnP against the ranked keyframes, then NORMAL from the recovered
+        pose (the trajectory gets no row for this frame, as in the JAX
+        package); ``reloc_log`` keeps the frame's counts."""
+        stats = {}
+        ok, Tcw, lm_id, n = try_relocalize(
+            self.cam, feats, self.ms, recognizer=self.recognizer,
+            n_levels=self.n_levels, scale_factor=self.scale_factor,
+            p=self.params.place_rec, stats=stats)
+        self.reloc_log.append(dict(frame_id=frame_id, ok=ok, **stats))
+        tel.n_inliers = n
+        if not ok:
+            return
+        self.last_Tcw = Tcw
+        self.last_Tcr = torch.eye(4, dtype=torch.float32, device=self.device)
+        self.last_feats = feats
+        self.last_lm_id = lm_id
+        self.frames_since_reloc = 0
+        self.state = State.NORMAL
+        tel.state += ">RELOC_OK"

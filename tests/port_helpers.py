@@ -7,6 +7,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from hyslam_tpu.core.frame import FrameFeatures as JFrameFeatures
@@ -190,3 +191,102 @@ def jax_tracker_state():
     traj = JT.append(JT.empty_trajectory(8), 0.5, jse3.exp(jnp.full(6, 0.1)), 0,
                      jse3.identity(), True)
     return ms, traj
+
+
+# the RANSAC sample sets of the JAX package's estimators, drawn with
+# jax.random exactly as they draw them, for the port's estimators, which
+# take their sets as an argument (ROADMAP queue 1, the rule for steps 13-15)
+
+def jax_two_view_samples(valid, seed: int = 0):
+    """(F sets, H sets) [256, 8] that ``two_view_reconstruct(seed=seed)``
+    of the JAX package draws for the mask ``valid``."""
+    from hyslam_tpu.estimators import two_view as jtv
+
+    kF, kH = jax.random.split(jax.random.PRNGKey(seed))
+    v = jnp.asarray(np.asarray(valid))
+    return tuple(torch.from_numpy(np.asarray(jtv._sample_valid(k, v, jtv.N_HYPOTHESES)))
+                 for k in (kF, kH))
+
+
+def jax_pnp_samples(valid, seed: int = 0) -> torch.Tensor:
+    """The [256, 6] sets that ``pnp_ransac`` of the JAX package draws with
+    ``PRNGKey(seed)`` for the mask ``valid``."""
+    from hyslam_tpu.estimators import pnp as jpnp
+
+    v = jnp.asarray(np.asarray(valid))
+    logits = jnp.where(v, 0.0, -jnp.inf)
+    idx = jax.random.categorical(
+        jax.random.PRNGKey(seed),
+        jnp.broadcast_to(logits, (jpnp.N_HYPOTHESES * jpnp.MIN_SET, v.shape[0])), axis=-1
+    ).reshape(jpnp.N_HYPOTHESES, jpnp.MIN_SET)
+    return torch.from_numpy(np.asarray(jnp.where(jnp.any(v), idx, 0)))
+
+
+def use_jax_samples(monkeypatch):
+    """Make the port's estimators draw the JAX package's sample sets."""
+    from hyslam_tpu_torch.estimators import pnp, two_view
+
+    monkeypatch.setattr(two_view, "sample_sets",
+                        lambda valid, seed=0: jax_two_view_samples(valid.cpu(), seed))
+    monkeypatch.setattr(pnp, "sample_sets",
+                        lambda valid, seed=0: jax_pnp_samples(valid.cpu(), seed))
+
+
+def mono_sequence(n: int, dark=(0, 0), seed: int = 0):
+    """Monocular features (no stereo) of a world that is a tilted plane and
+    a cloud beside it, for both packages' Trackers, F = 512: the camera
+    moves 0.12 m sideways and 0.06 m forward a frame with 0.004 rad of yaw,
+    so that two frames give the two-view estimator parallax. Frames
+    dark[0]..dark[1]-1 have no features. Returns (poses [n,4,4], the JAX
+    package's features)."""
+    from hyslam_tpu.core.frame import empty_features as j_empty_features
+
+    from helpers import DEFAULT_CAM, synth_frame_features
+
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(-14, 14, (2000, 2)).astype(np.float32)
+    plane = np.concatenate([xy, 6.0 + 0.25 * xy[:, :1]], -1)
+    cloud = np.stack([rng.uniform(4.5, 20, 1200), rng.uniform(-5, 5, 1200),
+                      rng.uniform(3, 10, 1200)], -1)
+    pts = np.concatenate([plane, cloud]).astype(np.float32)
+    descs = rng.integers(0, 2**32, (len(pts), 8), dtype=np.uint32)
+    delta = synth.se3_exp([0.0, 0.004, 0.0, -0.12, 0.0, -0.06]).astype(np.float32)
+    Ts, T = [], np.eye(4, dtype=np.float32)
+    for _ in range(n):
+        Ts.append(T.copy())
+        T = (delta @ T).astype(np.float32)
+    feats = []
+    for i in range(n):
+        f = synth_frame_features(DEFAULT_CAM, Ts[i], pts, descs, rng, F=512)[0]
+        f = f._replace(ur=jnp.full_like(f.ur, -1.0), depth=jnp.full_like(f.depth, -1.0))
+        feats.append(j_empty_features(512) if dark[0] <= i < dark[1] else f)
+    return np.stack(Ts), feats
+
+
+def mono_images(n: int, dark=(0, 0)):
+    """The left images of system_sequence(n) (0.1 m forward a frame, which
+    both packages' two-view estimators initialize on after a few frames),
+    frames dark[0]..dark[1]-1 flat: (poses, images [n,H,W])."""
+    Ts, _, pairs = system_sequence(n)
+    return Ts, synth.blackout(pairs, *dark)[:, 0]
+
+
+def mono_system_configs(async_tracking=False, **kw):
+    """system_configs with a monocular SYS_CAM (bf 0)."""
+    import dataclasses
+
+    jcfg, _ = system_configs(async_tracking, **kw)
+    jcfg.cameras["SLAM"] = dataclasses.replace(jcfg.cameras["SLAM"], bf=0.0, mono=True)
+    return jcfg, interop.system_config_from(jcfg, device="cpu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Imported into a test module: one CPU thread for its tests (float
+    scatter-adds then sum in one order), and the thread count it found
+    restored after them. A module-level set_num_threads would set it for
+    every test collected in the same process."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

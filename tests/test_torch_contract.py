@@ -49,7 +49,10 @@ SLICE_MODULES = [
     "hyslam_tpu_torch.io.datasets", "hyslam_tpu_torch.io.evaluate",
     "hyslam_tpu_torch.io.export", "hyslam_tpu_torch.utils.telemetry",
     "hyslam_tpu_torch.slam.system", "hyslam_tpu_torch.solver.priors",
-    "hyslam_tpu_torch.slam.sensor_fusion",
+    "hyslam_tpu_torch.slam.sensor_fusion", "hyslam_tpu_torch.estimators",
+    "hyslam_tpu_torch.estimators.two_view", "hyslam_tpu_torch.estimators.pnp",
+    "hyslam_tpu_torch.slam.mono_init", "hyslam_tpu_torch.slam.relocalization",
+    "hyslam_tpu_torch.slam.global_ba",
 ]
 
 
@@ -303,7 +306,9 @@ def test_unported_paths_raise():
     """Every state, flag and solver path that is not ported raises
     NotImplementedError and names its ROADMAP step; none falls back. What
     loss recovery and sensor fusion brought no longer raises: forced-loss
-    injection, sensor readings, REINITIALIZE, the CG solve, pose priors."""
+    injection, sensor readings, REINITIALIZE, the CG solve, pose priors;
+    nor what the monocular camera brought: a monocular tracker, RELOCALIZE
+    (where a BoW recognizer, step 14b, raises)."""
     from hyslam_tpu_torch.core.frame import empty_features
     from hyslam_tpu_torch.core.mapstate import MapCaps
     from hyslam_tpu_torch.core.sensordata import SensorData
@@ -312,8 +317,18 @@ def test_unported_paths_raise():
     from hyslam_tpu_torch.solver import ba, priors
 
     caps = MapCaps(K=4, L=64, F=16, O=4)
-    with pytest.raises(NotImplementedError, match="step 13"):
-        tracker.Tracker(cam=SMALL_CAM, caps=caps, is_mono=True, device="cpu")
+    mono = tracker.Tracker(cam=SMALL_CAM, caps=caps, is_mono=True, device="cpu")
+    assert mono.mapper.is_mono
+    mono.state = tracker.State.NORMAL
+    mono._lose_tracking()
+    assert mono.state == tracker.State.RELOCALIZE
+    # an empty map: no candidate, the frame stays in RELOCALIZE
+    assert mono.track(empty_features(16), 0.0, 0).state == "RELOCALIZE"
+    assert mono.reloc_log == [dict(frame_id=0, ok=False, candidates=0, pnp_solves=0,
+                                   local_solves=0)]
+    mono.recognizer = object()
+    with pytest.raises(NotImplementedError, match="step 14b"):
+        mono.track(empty_features(16), 0.1, 1)
     with pytest.raises(NotImplementedError, match="step 19"):
         tracker.Tracker(cam=SMALL_CAM, caps=caps, mapping_status=object(), device="cpu")
     assert tracker.Tracker(cam=SMALL_CAM, caps=caps, reset_interval=15,
@@ -329,8 +344,8 @@ def test_unported_paths_raise():
     # a featureless frame: no keyframe, so the reading is dropped
     assert tr.track(empty_features(16), 0.0, 0, sensor_data=sd).state == "INITIALIZE"
     assert not tr._has_priors and not tr.sensors.depth_valid.any()
-    tr.state = tracker.State.RELOCALIZE
-    with pytest.raises(NotImplementedError, match="step 14"):
+    tr.state = tracker.State.NO_IMAGES_YET
+    with pytest.raises(NotImplementedError, match="not a tracking state"):
         tr.track(empty_features(16), 0.0, 0)
     tr.state = tracker.State.NULL
     assert tr.track(empty_features(16), 0.1, 1).state == "NULL"

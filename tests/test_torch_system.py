@@ -215,10 +215,11 @@ def _cfg(**kw):
 
 
 @pytest.mark.parametrize("kw,step", [
-    (dict(enable_loop_closing=True), "steps 14-15"),
-    (dict(optimizer=OptimizerInfo(realtime=False)), "step 15"),
+    (dict(enable_loop_closing=True), "step 14b"),
+    (dict(optimizer=OptimizerInfo(realtime=False), enable_loop_closing=True), "step 15b"),
     (dict(pipelined=True), "step 19"),
-    (dict(cameras={"SLAM": CameraConfig(mono=True)}), "step 13"),
+    (dict(cameras={"SLAM": CameraConfig(mono=True), "Imaging": CameraConfig(mono=True)}),
+     "step 17"),
     (dict(cameras={"SLAM": CameraConfig(bf=45.0),
                    "Imaging": CameraConfig(mono=True, scale=0.5)}), "step 17"),
     (dict(cameras={"SLAM": CameraConfig(bf=45.0, extractor=ExtractorConfig(family="SURF"))}),
@@ -229,6 +230,14 @@ def test_unported_config_options_raise(kw, step):
         System(_cfg(**kw))
 
 
+@pytest.mark.parametrize("kw", [dict(optimizer=OptimizerInfo(realtime=False)),
+                                dict(cameras={"SLAM": CameraConfig(mono=True)})])
+def test_ported_config_options_build(kw):
+    """Periodic global BA and a monocular camera no longer raise."""
+    s = System(_cfg(**kw))
+    assert s.trackers["SLAM"].is_mono == s.config.cameras["SLAM"].mono
+
+
 def test_unported_entry_points_raise_and_defaults():
     """The default config asks for loop closing and raises; every entry
     point that is not ported names its step; with no device the System
@@ -237,8 +246,8 @@ def test_unported_entry_points_raise_and_defaults():
         System(SystemConfig(device="cpu"))
     s = System(_cfg())
     img = np.zeros((480, 640), np.float32)
-    with pytest.raises(NotImplementedError, match="step 13"):
-        s.track_monocular(img, 0.0)
+    # a flat image: nothing to extract, the tracker stays in INITIALIZE
+    assert s.track_monocular(img, 0.0).state == "INITIALIZE"
     with pytest.raises(NotImplementedError, match="step 17"):
         s.place_imaging_frame(0.0)
     with pytest.raises(NotImplementedError, match="step 17"):
