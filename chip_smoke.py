@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's stereo front end, tracker and System on one CUDA card,
-through a loss of tracking, with sensor readings, with a monocular camera
-and with periodic global BA.
+through a loss of tracking, with sensor readings, with a monocular camera,
+with periodic global BA and with loop closing.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card and
 the CUDA toolkit:
@@ -139,9 +139,31 @@ It exits non-zero, printing no result, where CUDA is not available. Phases:
    False) and its last PnP refinement, with phase 1's bounds, both timed.
    *7d*: a short stereo sync run at MapCaps(K=K_BIG) with
    ``optimizer.realtime=False``, whose global BA ``solver="auto"`` sends to
-   the CG solve; on its map the dense global BA, timed beside it: the
-   first linearization's pose steps within 1e-3 relative, CG's final cost
-   no more than 1% above dense's; and the mapper's ms a keyframe at K_BIG.
+   the CG solve (N_ITERS_BIG LM iterations); on its map the dense global
+   BA over as many iterations, timed beside it: the first linearization's
+   pose steps within 1e-3 relative, CG's final cost no more than 1% above
+   dense's; and the mapper's ms a keyframe at K_BIG.
+
+8. Loop closing through ``System`` with the config's defaults (loop
+   closing on, the shipped ``Vocabulary/synthetic_orb.npz``), at phase 4's
+   operating point with MapCaps(K=K8): a rendered circuit of N_CIRCLE frames
+   around a circle and N_REVISIT more over its start (the recipe of
+   tests/test_async_tracking.py's loop test, scaled to this camera), frames
+   DARK8 flat, and after ``>REINIT_OK`` the registered sub-map moved by the
+   JAX tests' bad placement PERTURB8. *8a*, sync. Gates: REINITIALIZE, 2
+   maps, the sub-map registered; a loop closes, none before the revisit
+   (the first frame whose camera is back within MAX_LOOP_GAP_M of the
+   start's in the truth: the circle's last frames already run over it);
+   the first loop's keyframe and candidate in different maps and within
+   MAX_LOOP_GAP_M in the truth; the first closure at least halves the mean
+   translation error of the sub-map's keyframes; ATE under MAX_ATE_LOOP;
+   K1 launches as the telemetry calls for. *8b*, async (commit_lag 2): the
+   same gates. Printed: the closures' stages and the sub-map's errors
+   before and after, the synchronising calls of a keyframe's loop
+   maintenance with their sites, and a ``phase 8 timing:`` line (median
+   ms of a keyframe's loop maintenance that closes nothing; ms of
+   ``compute_sim3``, of ``correct`` with the essential graph and of the
+   post-loop global BA; frames/s of 8a and 8b; the card).
 
 Prints the card line, one JSON line of kernel results (with the kernel's
 time: its bound and what sets it, its fixed part and its time an
@@ -234,7 +256,7 @@ N_PRIOR_SYNC_COUNT = 12       # last frames of 6a's sync run, counted
 # against 428), and from there on they follow different paths to costs 7e-4
 # and poses 7e-3 apart, neither converged after 10 iterations. There the
 # gate is one-sided: CG must end no more than 1% above the dense solve (and
-# so in 7d, over global BA's 20 robust iterations at K_BIG).
+# so in 7d, over global BA's N_ITERS_BIG robust iterations at K_BIG).
 CG_STEP_RTOL, CG_COST_RTOL, CG_POSE_ATOL, CG_WHOLE_COST_RTOL = 1e-3, 1e-4, 1e-3, 1e-2
 N_SHORT_ITERS = 5             # robust iterations of 6d's short solve (local BA's phase 1)
 # 6a's sync run with periodic global BA: its keyframes are frames 0-29 and
@@ -252,6 +274,24 @@ MAX_RELOC_DELAY = 3           # frames from the blackout's end to >RELOC_OK
 # worst frame is the initialization's second frame, 0.183642 m
 MAX_ATE_MONO, MAX_T_MONO = 0.13, 0.28
 K_BIG, N_BIG = 512, 10
+N_ITERS_BIG = 5               # LM iterations of 7d's global BA, CG and dense alike
+# phase 8: loop closing through the System on tests/test_async_tracking.py's
+# circuit scaled to this camera: N_CIRCLE frames around a circle (0.5 m and
+# 2 pi / N_CIRCLE of yaw a frame), N_REVISIT more over its start, N_CIRCLE x
+# POINTS_PER_CENTRE points from default_rng(8) in a 12 x 8 x 12 m box around
+# each of the circle's camera centres, frames
+# DARK8 flat; after >REINIT_OK the sub-map is moved by PERTURB8 (the JAX
+# tests' bad placement). K8 keyframe slots: one keyframe a frame.
+N_CIRCLE, N_REVISIT, STEP8 = 72, 18, 0.5
+POINTS_PER_CENTRE = 55
+DARK8 = (25, 29)
+PERTURB8 = (0.0, 0.05, 0.0, 0.35, 0.0, 0.35)
+K8 = 128
+# ATE after the closure: 1.5x the larger reading of 8a (0.0381 m) and 8b
+# (0.0566 m) on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md), under the
+# 0.40 m of tests/test_async_tracking.py's loop test
+MAX_ATE_LOOP = 0.085
+MAX_LOOP_GAP_M = 1.0          # closing keyframe to candidate, in the rendered truth
 
 
 def log(msg: str) -> None:
@@ -1669,6 +1709,7 @@ def phase7(cam, cfg, poses, pairs):
     run_global_ba = system_mod.run_global_ba
 
     def spied_run(ms, *a, **kw):
+        kw = {**kw, "n_iters": N_ITERS_BIG}
         ba._solve_poses_cg, ba._solve_poses = counting("cg"), counting("dense")
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1732,6 +1773,249 @@ def phase7(cam, cfg, poses, pairs):
     return total
 
 
+def loop_circuit(cam, dev):
+    """Phase 8's circuit: (poses [n] numpy, stereo pairs [n,2,H,W] on dev
+    with frames DARK8 flat)."""
+    from hyslam_tpu_torch.utils import synth
+
+    delta = synth.se3_exp([0.0, 2 * np.pi / N_CIRCLE, 0.0, 0.0, 0.0, -STEP8])
+    poses = [np.eye(4, dtype=np.float32)]
+    for _ in range(N_CIRCLE + N_REVISIT - 1):
+        poses.append((delta @ poses[-1]).astype(np.float32))
+    rng = np.random.default_rng(8)
+    centres = [-(T[:3, :3].T @ T[:3, 3]) for T in poses[:N_CIRCLE]]
+    pts = np.concatenate([c + rng.uniform([-6, -4, -6], [6, 4, 6], (POINTS_PER_CENTRE, 3))
+                          for c in centres]).astype(np.float32)
+    t0 = time.perf_counter()
+    pairs = synth.blackout(np.stack([synth.render_stereo_pair(cam, T, pts) for T in poses]),
+                           *DARK8)
+    log(f"phase 8: rendered {len(poses)} stereo pairs of the circuit ({len(pts)} points) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return poses, torch.from_numpy(pairs).to(dev)
+
+
+def phase8(cam, cfg, dev):
+    """Loop closing through the System; see the module docstring. Returns
+    the K1 launches of its gated runs."""
+    from hyslam_tpu_torch.core import mapstate as M
+    from hyslam_tpu_torch.ops.pose_opt_cuda import pose_optimization_cuda
+    from hyslam_tpu_torch.slam import loop_closing
+    from hyslam_tpu_torch.utils import synth
+
+    poses, pairs = loop_circuit(cam, dev)
+    n = len(poses)
+    # the revisit begins where the camera comes back within MAX_LOOP_GAP_M
+    # of the circuit's start (the circle's last frames run over it)
+    centres = np.stack([-(T[:3, :3].T @ T[:3, 3]) for T in poses])
+    revisit = next(i for i in range(N_CIRCLE // 2, n)
+                   if np.linalg.norm(centres[i] - centres[0]) <= MAX_LOOP_GAP_M)
+    caps = (K8,) + TRACK_CAPS[1:]
+    failed = []
+    total = 0
+
+    def gate(name, ok):
+        log(f"phase 8 gate {'ok' if ok else 'FAILED'}: {name}")
+        if not ok:
+            failed.append(name)
+
+    def kf_errors(ms, map_id):
+        ks = torch.nonzero(ms.kf.valid & ~ms.kf.bad & (ms.kf.map_id == map_id))[:, 0]
+        T, fids = ms.kf.Tcw[ks].cpu().numpy(), ms.kf.frame_id[ks].tolist()
+        return [synth.pose_error(T[j], poses[f])[1] for j, f in enumerate(fids)]
+
+    def run(name, **kw):
+        """The circuit through a System with loop closing on (the config's
+        default) and the shipped vocabulary (the default); every keyframe's
+        loop maintenance timed, the closures' stages timed, the sub-map's
+        keyframe errors read before and after each closure."""
+        cc_kw = dict(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, width=cam.width,
+                     height=cam.height, bf=cam.bf, th_depth=cam.th_depth, extractor=cfg)
+        from hyslam_tpu_torch.core.mapstate import MapCaps
+        from hyslam_tpu_torch.io.config import CameraConfig, SystemConfig
+        from hyslam_tpu_torch.slam.system import System
+
+        sysm = System(SystemConfig(cameras={"SLAM": CameraConfig(**cc_kw)},
+                                   caps=MapCaps(*caps), **kw))
+        tr = sysm.trackers["SLAM"]
+        rec = dict(maint=[], closures=[], stages=[], sync=[], built=None)
+        close_loop, get_closer = sysm._close_loop, sysm._get_loop_closer
+        real = {k: getattr(loop_closing.LoopCloser, k) for k in ("compute_sim3", "correct")}
+        frame = {"i": 0}
+
+        def timed(fn, *a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            return out, 1e3 * (time.perf_counter() - t)
+
+        def stage(key):
+            def wrapped(self, *a, **k):
+                out, ms_ = timed(real[key], self, *a, **k)
+                rec["stages"].append((key, ms_, out[0] if key == "compute_sim3" else out[1]))
+                if key == "compute_sim3" and out[0]:
+                    rec["stages"].append(("g_cl", [round(x, 5) for x in out[1].tolist()], True))
+                if key == "correct":    # the sub-map keyframes' mean error after it
+                    rec["stages"].append(("sub-map error after correct, m",
+                                          float(np.mean(kf_errors(out[0], 1) or [0])), True))
+                return out
+            return wrapped
+
+        def spied_close(camera, closer, kf_id):
+            before = {m: kf_errors(tr.ms, m) for m in (0, 1)}
+            rec["stages"] = []
+            counted = N_WARM <= frame["i"] < N_SYNC_COUNT + 10
+            sites = {}
+            if counted:
+                def go():
+                    sites["out"] = timed(close_loop, camera, closer, kf_id)
+                rec["sync"].append(sync_sites(go))
+                closed, ms_ = sites["out"]
+            else:
+                closed, ms_ = timed(close_loop, camera, closer, kf_id)
+            if closed:
+                rec["closures"].append(dict(
+                    kf=kf_id, frame=int(tr.ms.kf.frame_id[kf_id]), ms=ms_,
+                    stages=list(rec["stages"]),
+                    before=before, after={m: kf_errors(tr.ms, m) for m in (0, 1)}))
+            else:
+                rec["maint"].append(ms_)
+            return closed
+
+        def spied_get(camera):
+            if camera in sysm.loop_closers:
+                return get_closer(camera)
+            out, ms_ = timed(get_closer, camera)
+            if out is not None:
+                rec["built"] = (frame["i"], ms_)
+            return out
+
+        global_ba = sysm._global_ba
+
+        def spied_gba(camera, **k):
+            _, ms_ = timed(global_ba, camera, **k)
+            rec["stages"].append(("global_ba", ms_, True))
+
+        sysm._close_loop, sysm._get_loop_closer = spied_close, spied_get
+        sysm._global_ba = spied_gba
+        loop_closing.LoopCloser.compute_sim3 = stage("compute_sim3")
+        loop_closing.LoopCloser.correct = stage("correct")
+        T_pert = torch.from_numpy(synth.se3_exp(PERTURB8).astype(np.float32)).to(dev)
+        nudged = None
+        try:
+            pose_optimization_cuda.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(n):
+                frame["i"] = i
+                tel = sysm.track_stereo(pairs[i, 0], pairs[i, 1], FRAME_DT * i, frame_id=i)
+                state = tel.state if tel is not None else (
+                    tr.telemetry[-1].state if tr.telemetry else "")
+                if nudged is None and ">REINIT_OK" in state:
+                    tr.drain_pending()
+                    tr._sync_dev_to_host()
+                    tr.ms = M.refresh_tiepoints(M.apply_transform_to_map(
+                        tr.ms, int(tr.ms.maps.active), T_pert))
+                    # the rows tracked in the sub-map follow it, as a bad
+                    # placement would have left them
+                    sysm._refresh_trajectory("SLAM")
+                    nudged = i
+            sysm.flush()
+            secs = time.perf_counter() - t0
+            launches = pose_optimization_cuda.launches
+        finally:
+            for k, fn in real.items():
+                setattr(loop_closing.LoopCloser, k, fn)
+        return sysm, tr, rec, launches, secs, nudged
+
+    def check(name, sysm, tr, rec, launches, secs, nudged):
+        tels = tr.telemetry
+        states = [t.state for t in tels]
+        idx, ate, errs = trajectory_errors(tr, poses)
+        closer = sysm.loop_closers.get("SLAM")
+        ms = tr.ms
+        edges = closer.loop_edges if closer is not None else []
+        n_kf = sum(t.kf_inserted >= 0 for t in tels)
+        worst = int(np.argmax(errs))
+        for t in tels:
+            log(f"  8{name} frame {t.frame_id}: {t.state} motion {t.n_motion} inliers "
+                f"{t.n_inliers} kf {t.kf_inserted}")
+        log(f"phase 8{name}: {len(tels)} rows, {len(idx)} trajectory poses, {n_kf} keyframes, "
+            f"n_maps {int(ms.maps.n_maps)}, sub-map moved at frame {nudged}, loop closer built "
+            f"at frame {rec['built'][0] if rec['built'] else None} "
+            f"({rec['built'][1] if rec['built'] else 0:.1f} ms), {closer.n_closed if closer else 0}"
+            f" closures {[e[:2] for e in edges]}, ATE {ate:.6f} m, worst frame {int(idx[worst])} "
+            f"at {errs[worst]:.6f} m, K1 launches {launches}, expected {expected_launches(tr)}, "
+            f"{secs:.1f} s, {n / secs:.4f} frames/s")
+        for c in rec["closures"]:
+            log(f"phase 8{name} closure of keyframe {c['kf']} (frame {c['frame']}): {c['ms']:.1f} ms "
+                f"stages {[(k, round(v, 4) if isinstance(v, float) else v, ok) for k, v, ok in c['stages']]}; keyframe "
+                "translation errors against the truth, mean / max m, before -> after: " + "; ".join(
+                    f"map {m}: {np.mean(x):.6f} / {max(x):.6f} -> {np.mean(y):.6f} / {max(y):.6f}"
+                    for m, (x, y) in ((m, (c['before'][m], c['after'][m])) for m in (0, 1))
+                    if x and y) + " (6a's sub-map, no loop: 0.0895 m)")
+        gate(f"8{name}: REINITIALIZE entered, 2 maps, the sub-map registered and moved",
+             any(s_.startswith("REINITIALIZE") for s_ in states) and int(ms.maps.n_maps) == 2
+             and bool(ms.maps.registered[1]) and nudged is not None)
+        gate(f"8{name}: {n} rows in frame order, state NORMAL",
+             [t.frame_id for t in tels] == list(range(n)) and states[-1].startswith("NORMAL"))
+        first = rec["closures"][0] if rec["closures"] else None
+        gate(f"8{name}: a loop closed, none before the revisit's first frame ({revisit}, the "
+             f"first within {MAX_LOOP_GAP_M} m of the start in the truth)",
+             first is not None and all(c["frame"] >= revisit for c in rec["closures"]))
+        if edges:
+            kf, cand = edges[0][:2]
+            fk, fc = int(ms.kf.frame_id[kf]), int(ms.kf.frame_id[cand])
+            gap = float(np.linalg.norm(centres[fk] - centres[fc]))
+            log(f"phase 8{name}: the first loop joins keyframe {kf} (frame {fk}, map "
+                f"{int(ms.kf.map_id[kf])}) to keyframe {cand} (frame {fc}, map "
+                f"{int(ms.kf.map_id[cand])}), {gap:.3f} m apart in the truth")
+            gate(f"8{name}: the loop crosses the sub-map border, its keyframes within "
+                 f"{MAX_LOOP_GAP_M} m in the truth",
+                 int(ms.kf.map_id[kf]) != int(ms.kf.map_id[cand]) and gap < MAX_LOOP_GAP_M)
+        if first is not None and first["before"][1] and first["after"][1]:
+            b, a = np.mean(first["before"][1]), np.mean(first["after"][1])
+            gate(f"8{name}: the first closure at least halves the sub-map keyframes' mean error "
+                 f"({b:.6f} -> {a:.6f} m)", a <= 0.5 * b)
+        gate(f"8{name}: ATE < {MAX_ATE_LOOP} m", ate < MAX_ATE_LOOP)
+        gate(f"8{name}: K1 launches {launches} == {expected_launches(tr)} from the telemetry",
+             launches == expected_launches(tr) and launches > 0)
+        return ate
+
+    out_a = run("a", enable_loop_closing=True)
+    sysm_a, tr_a, rec_a, launches, secs_a, _ = out_a
+    total += launches
+    check("a", *out_a)
+    if rec_a["sync"]:
+        rep = max(rec_a["sync"], key=lambda s_: sum(s_.values()))
+        log("phase 8a synchronising calls of a keyframe's loop maintenance: " + json.dumps({
+            "keyframes": len(rec_a["sync"]),
+            "median": statistics.median(sum(s_.values()) for s_ in rec_a["sync"]),
+            "max": sum(rep.values()), "sites_of_the_max": rep}))
+    out_b = run("b", enable_loop_closing=True, async_tracking=True, commit_lag=2)
+    total += out_b[3]
+    check("b", *out_b)
+    closure = rec_a["closures"][0] if rec_a["closures"] else None
+
+    def stage_ms(key):
+        return [v for k, v, _ in closure["stages"] if k == key] if closure else []
+
+    log("phase 8 timing: " + json.dumps({
+        "card": card_line(),
+        "median_ms_loop_maintenance_no_closure": statistics.median(rec_a["maint"])
+        if rec_a["maint"] else None,
+        "keyframes_without_closure": len(rec_a["maint"]),
+        "ms_build_loop_closer": rec_a["built"][1] if rec_a["built"] else None,
+        "ms_compute_sim3": stage_ms("compute_sim3"),
+        "ms_correct_with_essential_graph": stage_ms("correct"),
+        "ms_closure_total": closure["ms"] if closure else None,
+        "ms_post_loop_global_ba": stage_ms("global_ba"),
+        "frames_per_s_8a": n / secs_a, "frames_per_s_8b": n / out_b[4]}))
+    if failed:
+        raise AssertionError("phase 8 failed: " + "; ".join(failed))
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1761,6 +2045,7 @@ def main() -> int:
     launches += tracked["launches"] + launches5
     launches += timed("6", phase6, cam, cfg, poses, pairs, tracked, async_lines)
     launches += timed("7", phase7, cam, cfg, poses, pairs)
+    launches += timed("8", phase8, cam, cfg, dev)
     log(f"seconds a phase: {json.dumps(took)}")
     log(json.dumps({"kernels": [{
         "name": "pose_opt",

@@ -293,7 +293,18 @@ def add_landmarks(ms: MapState, pos: torch.Tensor, desc: torch.Tensor, kf_id,
         obs_feat=ix.put(lm.obs_feat, tgt, -1),
         obs_valid=ix.put(lm.obs_valid, tgt, False),
     )
-    ms = ms._replace(lm=lm, next_lm=ms.next_lm + torch.sum(ok, dtype=torch.int32))
+    # a recycled row may still be named by keyframes that held the bad
+    # landmark (a frame's association kept past its culling): the name then
+    # aliases the new landmark. Names held by keyframes of another map than
+    # the active one are cleared: kept, they forge a covisibility between
+    # the two maps that hides the loop between them from detection. Within
+    # the active map the alias stays, as in the JAX package.
+    fresh = ix.put(torch.zeros(L, dtype=torch.bool, device=dev), tgt, True)
+    ref = ms.kf.lm_id
+    other = (ms.kf.map_id != ms.maps.active)[:, None]
+    kf = ms.kf._replace(lm_id=torch.where(
+        other & (ref >= 0) & fresh[ref.clamp(0, L - 1).long()], -1, ref))
+    ms = ms._replace(lm=lm, kf=kf, next_lm=ms.next_lm + torch.sum(ok, dtype=torch.int32))
     out_idx = torch.where(ok, slots.clamp(0, L - 1), -1).to(torch.int32)
     ms = add_associations(ms, kf_id, feat_idx, out_idx, ok)
     return ms, out_idx

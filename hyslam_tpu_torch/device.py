@@ -27,3 +27,8 @@ def default_device() -> torch.device:
             "no CUDA device: the port's entry points run on the card by "
             "default; pass device=\"cpu\" to run on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device, or the default one where it is None."""
+    return torch.device(device) if device is not None else default_device()

@@ -5,8 +5,9 @@ rebuilt in the port from the same numpy code, and the map state. These
 functions turn JAX-package arrays, given as numpy (``np.asarray`` of a JAX
 array), into the port's tensors and back: features, cameras, extractor
 configs, landmark tables, whole map states, trajectories, the async loop's
-tracker state, sensor records and arenas, BA's pose priors, and a whole
-``SystemConfig``. Objects are read by field name,
+tracker state, sensor records and arenas, BA's pose priors, a whole
+``SystemConfig``, the BoW vocabulary, and a loop closer's state (its
+recognizer's rows, consistency groups and loop edges). Objects are read by field name,
 so nothing here imports the JAX package.
 
 Descriptors travel as the int32 bit-view of the JAX package's uint32 lanes:
@@ -249,3 +250,56 @@ def system_config_from(cfg, device=None):
                                    for f in dataclasses.fields(OptimizerInfo)}),
         caps=_named_tuple_from(MapCaps, cfg.caps), device=device,
         **{k: getattr(cfg, k) for k in plain})
+
+
+def vocabulary_from_numpy(vocab, device=None):
+    """A JAX-package Vocabulary (or the dict from ``vocabulary_to_numpy``)
+    -> the port's on ``device``, bit for bit."""
+    from hyslam_tpu_torch.features.bow import vocabulary_from_arrays
+
+    get = vocab.__getitem__ if isinstance(vocab, dict) else (lambda k: getattr(vocab, k))
+    return vocabulary_from_arrays(*(get(k) for k in (
+        "centers", "children", "word_id", "idf", "k", "depth")), device=device)
+
+
+def vocabulary_to_numpy(vocab) -> dict:
+    """The port's Vocabulary -> dict of numpy arrays in the JAX package's
+    dtypes (uint32 centers): ``Vocabulary(**d)`` of either package."""
+    from hyslam_tpu_torch.features.bow import vocabulary_arrays
+
+    return vocabulary_arrays(vocab)
+
+
+def loop_closer_from(closer, device=None):
+    """A JAX-package LoopCloser (its PlaceRecognizer's vocabulary, BoW rows
+    ``kf_bow``, ``present``, and the closer's ``consistency``,
+    ``loop_edges``, ``last_loop_kf``, ``n_closed``; or the dict from
+    ``loop_closer_to_numpy``) -> the port's LoopCloser on ``device``."""
+    from hyslam_tpu_torch.features.bow import PlaceRecognizer
+    from hyslam_tpu_torch.slam.loop_closing import LoopCloser
+
+    get = closer.__getitem__ if isinstance(closer, dict) else (lambda k: getattr(closer, k))
+    rec = get("recognizer")
+    rget = rec.__getitem__ if isinstance(rec, dict) else (lambda k: getattr(rec, k))
+    kf_bow = np.asarray(rget("kf_bow"), np.float32)
+    pr = PlaceRecognizer(vocabulary_from_numpy(rget("vocab"), device), K=kf_bow.shape[0])
+    pr.kf_bow = torch.from_numpy(np.array(kf_bow)).to(device)
+    pr.present = np.array(rget("present"), bool)
+    return LoopCloser(
+        cam=camera_from(get("cam")), recognizer=pr, fix_scale=bool(get("fix_scale")),
+        consistency=[(set(int(x) for x in g), int(c)) for g, c in get("consistency")],
+        loop_edges=[(int(i), int(j), np.array(m, np.float32)) for i, j, m in get("loop_edges")],
+        last_loop_kf=int(get("last_loop_kf")), n_closed=int(get("n_closed")))
+
+
+def loop_closer_to_numpy(closer) -> dict:
+    """The port's LoopCloser -> nested dict of numpy arrays and plain
+    values, which ``loop_closer_from`` reads back."""
+    pr = closer.recognizer
+    return dict(
+        cam=closer.cam, fix_scale=closer.fix_scale,
+        recognizer=dict(vocab=vocabulary_to_numpy(pr.vocab), kf_bow=pr.kf_bow.cpu().numpy(),
+                        present=pr.present.copy()),
+        consistency=[(set(g), c) for g, c in closer.consistency],
+        loop_edges=[(i, j, np.array(m)) for i, j, m in closer.loop_edges],
+        last_loop_kf=closer.last_loop_kf, n_closed=closer.n_closed)

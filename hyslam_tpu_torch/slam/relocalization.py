@@ -1,11 +1,11 @@
 """Relocalization: recover tracking after a loss (counterpart of
 ``hyslam_tpu/slam/relocalization.py``).
 
-Candidate keyframes are ranked by dense descriptor-set similarity; each
-candidate in turn is descriptor-matched against the keyframe's landmarks
-(>= 15), solved by PnP-RANSAC with the pose-only LM, and, with >= 10
-inliers, re-matched against the local map to >= 50 inliers. Ranking through
-the BoW place recognizer is ROADMAP step 14b: a recognizer raises.
+Candidate keyframes are ranked by the BoW place recognizer where the
+System has built one (loop closing on), else by dense descriptor-set
+similarity; each candidate in turn is descriptor-matched against the
+keyframe's landmarks (>= 15), solved by PnP-RANSAC with the pose-only LM,
+and, with >= 10 inliers, re-matched against the local map to >= 50 inliers.
 
 Each candidate that passes the match gate costs one pose-only LM (the PnP
 refinement), each that passes the PnP gate one more (the local map's); on a
@@ -31,14 +31,16 @@ from hyslam_tpu_torch.slam.tracking_params import PlaceRecognitionParams
 
 def rank_candidates(frame_desc, frame_valid, ms: MapState, n_candidates: int = 5,
                     recognizer=None) -> list:
-    """Candidate keyframes of the active map's scope: the share of the
-    frame's features whose nearest keyframe descriptor lies under 50 bits,
-    best first (numpy's sort of the same float32 scores as the JAX
-    package's), those over 0.05. One read of the scope and one of the
-    counts."""
+    """Candidate keyframes. With a recognizer (``features.bow.
+    PlaceRecognizer``): its relocalization candidates over the whole
+    covisibility matrix, as in the JAX package. Without: those of the active
+    map's scope by the share of the frame's features whose nearest keyframe
+    descriptor lies under 50 bits, best first (numpy's sort of the same
+    float32 scores as the JAX package's), those over 0.05; one read of the
+    scope and one of the counts."""
     if recognizer is not None:
-        raise NotImplementedError(
-            "candidate ranking through the BoW place recognizer is ROADMAP step 14b")
+        return recognizer.detect_relocalization_candidates(
+            frame_desc, frame_valid, ms.covis, n_max=n_candidates)
     kf_ok, _ = visible_scope(ms)
     ks = torch.nonzero(kf_ok)[:, 0].tolist()
     scores = np.zeros(ms.K, np.float32)

@@ -11,17 +11,26 @@ committed ``commit_lag`` frames later, ``flush()`` to settle). After every
 keyframe comes the map maintenance: with ``optimizer.realtime=False`` a
 global BA every ``gba_interval`` keyframes, in async mode too (between
 frames, after the frames in flight are committed; the JAX package's async
-mode never reaches it). Also the data exporters (trajectory TSV / TUM,
-COLMAP, Agisoft XML, map points), map and checkpoint files, and the TSV
-telemetry logs.
+mode never reaches it), and loop closing (``enable_loop_closing``, the
+config's default): BoW place recognition over the keyframes, Sim3
+verification, loop correction with the essential graph, then a global BA
+of 10 iterations. The recognizer is built once the map holds 4 keyframes
+(from ``vocab_path``, else the shipped ``Vocabulary/synthetic_orb.npz``,
+else a vocabulary trained on the map's own descriptors) and also ranks
+relocalization's candidates. In async mode the maintenance of every
+committed keyframe runs between frames, in keyframe order, as the sync
+path runs it: there is no worker thread and no keyframe is left without
+detection; before a verified loop is applied the frames in flight are
+committed and the loop is verified again on the map they leave. Also the
+data exporters (trajectory TSV / TUM, COLMAP, Agisoft XML, map points), map
+and checkpoint files, and the TSV telemetry logs.
 
 The system lives on ``config.device``; with none given it takes the current
 CUDA card and raises where there is none. It is single-threaded and uses one
 stream.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-step: loop closing (``enable_loop_closing=True``, the config's default, so
-callers pass ``False``; steps 14b-15b), the threaded pipeline
+step: the threaded pipeline
 (``pipelined=True``, step 19), more than one camera,
 ``place_imaging_frame`` and ``run_imaging_bundle_adjustment`` (step 17),
 the SURF family (step 18). Every ``track_*`` entry takes
@@ -49,18 +58,27 @@ from hyslam_tpu_torch.io import export as EXP
 from hyslam_tpu_torch.io.config import SystemConfig
 from hyslam_tpu_torch.ops.pyramid import preprocess_image
 from hyslam_tpu_torch.ops.stereo import match_stereo_refined
+from hyslam_tpu_torch.features.bow import PlaceRecognizer, train_vocabulary
+from hyslam_tpu_torch.features.vocab_io import load_dbow2_text, load_vocabulary
 from hyslam_tpu_torch.slam.global_ba import run_global_ba
+from hyslam_tpu_torch.slam.loop_closing import LoopCloser
 from hyslam_tpu_torch.slam.tracker import State, Tracker
 from hyslam_tpu_torch.utils.telemetry import MappingLog, StageTimer, TrackingLog
 
 
+VOCAB_TRAIN_KFS = 4   # the loop closer is built once the map holds this many keyframes
+
+
+def default_vocab_path():
+    """The shipped vocabulary, ``Vocabulary/synthetic_orb.npz`` at the
+    repository's root, or None where it is absent."""
+    p = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "Vocabulary", "synthetic_orb.npz")
+    return p if os.path.exists(p) else None
+
+
 def _unported(config: SystemConfig) -> None:
     """Raise for every option of the config that this port does not serve."""
-    if config.enable_loop_closing:
-        raise NotImplementedError(
-            "loop closing (BoW place recognition, ROADMAP step 14b; Sim3, the pose "
-            "graph and loop correction, step 15b) is not ported: pass "
-            "enable_loop_closing=False")
     if config.pipelined:
         raise NotImplementedError(
             "the threaded pipeline (pipelined=True) is ROADMAP step 19")
@@ -87,6 +105,8 @@ class System:
                        if self.config.device is not None else default_device())
         self.trackers: Dict[str, Tracker] = {}
         self.cameras = {}
+        self.loop_closers: Dict[str, LoopCloser] = {}
+        self._vocab = None
         self._frame_counter = 0
         self._kfs_since_gba = 0
         self._shutdown = False
@@ -245,7 +265,7 @@ class System:
         if tel.kf_inserted >= 0:
             if self._mapping_log is not None and tel.mapper_stats:
                 self._mapping_log.log(camera, tel.kf_inserted, tel.mapper_stats)
-            self._on_new_keyframe(camera)
+            self._on_new_keyframe(camera, tel.kf_inserted)
         return tel
 
     def _maintain_pending(self, camera: str):
@@ -253,33 +273,102 @@ class System:
         the last call, in the order they were made."""
         pending = self._pending_kfs[camera]
         while pending:
-            pending.pop(0)
-            self._on_new_keyframe(camera)
+            self._on_new_keyframe(camera, pending.pop(0))
 
-    def _on_new_keyframe(self, camera: str):
-        if self._maintain_map(camera):
+    def _on_new_keyframe(self, camera: str, kf_id: int):
+        if self._maintain_map(camera, kf_id):
             self._refresh_trajectory(camera)
 
-    def _maintain_map(self, camera: str) -> bool:
-        """The map maintenance after a keyframe: in the offline mode
+    def _maintain_map(self, camera: str, kf_id: int) -> bool:
+        """The map maintenance after keyframe kf_id: loop closing (with a
+        global BA of 10 iterations after a closure), and in the offline mode
         (``optimizer.realtime=False``) a global BA every ``gba_interval``
-        keyframes. Loop closing, its other half, is ROADMAP step 15b (the
-        constructor refuses it). In async mode the frames in flight are
-        committed first: the global BA then holds every keyframe made so
+        keyframes. In async mode the frames in flight are committed before
+        the map is changed: the global BA then holds every keyframe made so
         far, and no frame is left in flight with a pose of the map before it.
         Returns whether the map moved."""
+        moved = False
+        if self.config.enable_loop_closing and camera == "SLAM":
+            closer = self._get_loop_closer(camera)
+            if closer is not None:
+                moved = self._close_loop(camera, closer, kf_id)
         self._kfs_since_gba += 1
         opt = self.config.optimizer
         if opt.realtime or self._kfs_since_gba < opt.gba_interval:
-            return False
+            return moved
         tracker = self.trackers[camera]
         tracker.drain_pending()
-        ex = self.config.cameras[camera].extractor
-        tracker.ms, _ = run_global_ba(
-            tracker.ms, self.cameras[camera], sensors=tracker.sensors, opt_info=opt,
-            n_levels=ex.n_levels, scale_factor=ex.scale_factor)
+        self._global_ba(camera)
         self._kfs_since_gba = 0
         return True
+
+    def _global_ba(self, camera: str, **kw):
+        tracker = self.trackers[camera]
+        ex = self.config.cameras[camera].extractor
+        tracker.ms, _ = run_global_ba(
+            tracker.ms, self.cameras[camera], sensors=tracker.sensors,
+            opt_info=self.config.optimizer, n_levels=ex.n_levels,
+            scale_factor=ex.scale_factor, **kw)
+
+    def _close_loop(self, camera: str, closer: LoopCloser, kf_id: int) -> bool:
+        """Detection and verification of keyframe kf_id; on a loop, the
+        correction and the global BA. In async mode frames in flight are
+        committed first and the loop verified again on the map they leave
+        (the same RANSAC draws), so that no loop is applied to a map other
+        than the one it was verified on. Returns whether a loop closed."""
+        tracker = self.trackers[camera]
+        found, cand, g_cl, _ = closer.detect_and_verify(tracker.ms, kf_id)
+        if not found:
+            return False
+        if tracker._pending:
+            tracker.drain_pending()
+            found, g_cl, _ = closer.compute_sim3(tracker.ms, kf_id, cand)
+            if not found:
+                return False
+        ms, applied = closer.correct(tracker.ms, kf_id, cand, g_cl)
+        if not applied:
+            return False
+        closer.n_closed += 1
+        tracker.ms = ms
+        self._global_ba(camera, n_iters=10)
+        return True
+
+    def _get_loop_closer(self, camera: str):
+        """The camera's loop closer, built once the map holds
+        VOCAB_TRAIN_KFS keyframes (None before), its recognizer back-filled
+        with every keyframe so far and handed to the tracker for
+        relocalization."""
+        if camera in self.loop_closers:
+            return self.loop_closers[camera]
+        tracker = self.trackers[camera]
+        ms = tracker.ms
+        n_kf = int(ms.next_kf)
+        if n_kf < VOCAB_TRAIN_KFS:
+            return None
+        vp = self.config.vocab_path or default_vocab_path()
+        if self._vocab is None and vp:
+            self._vocab = (load_vocabulary(vp, self.device) if vp.endswith(".npz")
+                           else load_dbow2_text(vp, self.device))
+        if self._vocab is None:
+            # last resort: a vocabulary of the map's own descriptors
+            descs = ms.kf.desc[:n_kf].reshape(-1, 8).cpu().numpy()
+            valid = ms.kf.kp_valid[:n_kf].reshape(-1).cpu().numpy()
+            self._vocab = train_vocabulary(descs[valid][:20000], k=10, depth=3,
+                                           device=self.device)
+        pr = PlaceRecognizer(self._vocab, K=self.config.caps.K)
+        for k in range(n_kf):
+            pr.add_keyframe(k, ms.kf.desc[k], ms.kf.kp_valid[k])
+        closer = LoopCloser(cam=self.cameras[camera], recognizer=pr,
+                            fix_scale=not self.config.cameras[camera].mono)
+        self.loop_closers[camera] = closer
+        tracker.recognizer = pr
+        return closer
+
+    def _drop_loop_closer(self, camera: str):
+        """Forget the camera's loop closer and recognizer (after the map is
+        replaced): the next keyframe builds them anew from the new map."""
+        self.loop_closers.pop(camera, None)
+        self.trackers[camera].recognizer = None
 
     def _refresh_trajectory(self, camera: str):
         """Re-derive every trajectory pose from its (re-optimized) reference
@@ -322,11 +411,14 @@ class System:
         """Replace the camera's map by a file's (of either package). In
         async mode the frames in flight are committed first and the tracker
         leaves its tensor state, so that the next frame re-reads the new
-        map's keyframe cursor."""
+        map's keyframe cursor. The loop closer and its recognizer are
+        dropped (the file holds no BoW rows): the next keyframe rebuilds
+        them from the loaded map."""
         t = self.trackers[camera]
         t.drain_pending()
         t._sync_dev_to_host()
         t.ms = EXP.load_map_state(path, self.device)
+        self._drop_loop_closer(camera)
 
     def save_checkpoint(self, path: str, camera: str = "SLAM"):
         """Full resume checkpoint: map, trajectory, sensors, tracker state
@@ -344,6 +436,7 @@ class System:
         t.drain_pending()
         t._sync_dev_to_host()
         sys_scalars = EXP.load_checkpoint(path, t)
+        self._drop_loop_closer(camera)
         if sys_scalars is not None:
             self._frame_counter, self._kfs_since_gba = (
                 int(x) for x in sys_scalars)
@@ -375,10 +468,11 @@ class System:
         self._close_logs()
 
     def reset(self):
-        """Fresh trackers and reopened telemetry logs (usable again after
-        ``shutdown()``)."""
+        """Fresh trackers, no loop closers, and reopened telemetry logs
+        (usable again after ``shutdown()``)."""
         for name in self.config.cameras:
             self.trackers[name] = self._make_tracker(name)
+        self.loop_closers.clear()
         self._close_logs()
         self._open_logs()
         self._shutdown = False

@@ -26,9 +26,10 @@ to the keyframe made from it and feeds local BA's pose priors, weighted by
 ``opt_info``. ``reset_interval`` forces a loss every N frames (fault
 injection).
 
-Not ported yet, each raising NotImplementedError where it would be entered:
-the BoW place recognizer in relocalization (a ``recognizer``, ROADMAP step
-14b), the threaded pipeline's ``mapping_status`` hook (step 19).
+Relocalization ranks its candidates through ``recognizer``, the BoW place
+recognizer that ``System`` hands over once its loop closer exists (dense
+similarity before). Not ported yet, raising NotImplementedError where it
+would be entered: the threaded pipeline's ``mapping_status`` hook (step 19).
 """
 
 from __future__ import annotations
@@ -186,7 +187,7 @@ class Tracker:
                                   # exist: local BA takes the prior path
         self._fetch_free: list = []   # pinned (buffer, event) pairs not in use
         self._mono_init: Optional[MonoInitializer] = None
-        self.recognizer = None        # the BoW place recognizer: step 14b
+        self.recognizer = None        # the BoW place recognizer, from System
         self.reloc_log: list = []     # per RELOCALIZE frame: its frame id,
                                       # try_relocalize's stats and the outcome
 

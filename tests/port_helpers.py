@@ -222,14 +222,30 @@ def jax_pnp_samples(valid, seed: int = 0) -> torch.Tensor:
     return torch.from_numpy(np.asarray(jnp.where(jnp.any(v), idx, 0)))
 
 
+def jax_sim3_samples(valid, seed: int = 0) -> torch.Tensor:
+    """The [128, 3] sets that ``sim3_ransac`` of the JAX package draws with
+    ``PRNGKey(seed)`` (the loop closer keys it by the keyframe id)."""
+    from hyslam_tpu.estimators import sim3_solver as jsim3
+
+    v = jnp.asarray(np.asarray(valid))
+    logits = jnp.where(v, 0.0, -jnp.inf)
+    idx = jax.random.categorical(
+        jax.random.PRNGKey(seed),
+        jnp.broadcast_to(logits, (jsim3.N_HYPOTHESES * 3, v.shape[0])), axis=-1
+    ).reshape(jsim3.N_HYPOTHESES, 3)
+    return torch.from_numpy(np.asarray(jnp.where(jnp.any(v), idx, 0)))
+
+
 def use_jax_samples(monkeypatch):
     """Make the port's estimators draw the JAX package's sample sets."""
-    from hyslam_tpu_torch.estimators import pnp, two_view
+    from hyslam_tpu_torch.estimators import pnp, sim3_solver, two_view
 
     monkeypatch.setattr(two_view, "sample_sets",
                         lambda valid, seed=0: jax_two_view_samples(valid.cpu(), seed))
     monkeypatch.setattr(pnp, "sample_sets",
                         lambda valid, seed=0: jax_pnp_samples(valid.cpu(), seed))
+    monkeypatch.setattr(sim3_solver, "sample_sets",
+                        lambda valid, seed=0: jax_sim3_samples(valid.cpu(), seed).to(valid.device))
 
 
 def mono_sequence(n: int, dark=(0, 0), seed: int = 0):
@@ -290,3 +306,101 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+# the feature-level circuit of the loop-closing System tests: DEFAULT_CAM
+# (640x480, bf 45), F = 256, MapCaps(K=32, L=4096, F=256, O=8)
+LOOP_F = 256
+LOOP_DT = 0.1
+LOOP_PERTURB = (0.0, 0.05, 0.0, 0.35, 0.0, 0.35)   # tests/test_longrun.py's
+
+
+def loop_circuit(n_circle: int = 24, n_revisit: int = 4, dark=(6, 8), step: float = 0.6,
+                 seed: int = 0):
+    """A circle of n_circle frames (0.6 m forward and 2 pi / n_circle of yaw
+    a frame), then n_revisit frames over its start again; 30 points from
+    default_rng(seed) around each of the circle's camera centres, each with
+    a random descriptor; frames dark[0]..dark[1]-1 without features. Returns
+    (poses [n,4,4], the JAX package's features a frame, the descriptors)."""
+    from helpers import DEFAULT_CAM, synth_frame_features
+
+    yaw = 2 * np.pi / n_circle
+    delta = synth.se3_exp([0.0, yaw, 0.0, 0.0, 0.0, -step]).astype(np.float32)
+    Ts, T = [], np.eye(4, dtype=np.float32)
+    for _ in range(n_circle + n_revisit):
+        Ts.append(T.copy())
+        T = (delta @ T).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    centers = np.stack([-(T[:3, :3].T @ T[:3, 3]) for T in Ts[:n_circle]])
+    pts = np.concatenate([c + rng.uniform([-6, -3, -6], [6, 3, 6], size=(30, 3))
+                          for c in centers]).astype(np.float32)
+    descs = rng.integers(0, 2**32, (len(pts), 8), dtype=np.uint32)
+    feats = []
+    for i, T in enumerate(Ts):
+        f, _ = synth_frame_features(DEFAULT_CAM, T, pts, descs, rng, F=LOOP_F)
+        if dark[0] <= i < dark[1]:
+            f = f._replace(valid=jnp.zeros_like(f.valid))
+        feats.append(f)
+    return np.stack(Ts), feats, descs
+
+
+def corridor_circuit(dark=(9, 13), n_back: int = 14, seed: int = 0):
+    """The async loop circuit: the camera runs 0.3 m a frame along a
+    corridor of 1200 points (default_rng(seed), each with a random
+    descriptor), slows down over 5 frames, and runs back at 0.3 m a frame
+    over its start with the same heading; frames dark[0]..dark[1]-1 without
+    features. Returns (poses, the JAX package's features a frame,
+    descriptors)."""
+    from helpers import DEFAULT_CAM, synth_frame_features
+
+    vel = [0.3] * 12 + [0.2, 0.1, 0.0, -0.1, -0.2] + [-0.3] * n_back
+    Ts, T = [], np.eye(4, dtype=np.float32)
+    for v in vel:
+        Ts.append(T.copy())
+        T = (synth.se3_exp([0.0, 0.0, 0.0, 0.0, 0.0, -v]) @ T).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(-8, 8, 1200), rng.uniform(-4, 4, 1200),
+                    rng.uniform(2, 25, 1200)], -1).astype(np.float32)
+    descs = rng.integers(0, 2**32, (len(pts), 8), dtype=np.uint32)
+    feats = []
+    for i, T in enumerate(Ts):
+        f, _ = synth_frame_features(DEFAULT_CAM, T, pts, descs, rng, F=LOOP_F)
+        if dark[0] <= i < dark[1]:
+            f = f._replace(valid=jnp.zeros_like(f.valid))
+        feats.append(f)
+    return np.stack(Ts), feats, descs
+
+
+def loop_system_configs(vocab_path: str, async_tracking=False):
+    """(the JAX package's SystemConfig, the port's on the CPU) of the loop
+    circuit: loop closing on (the default), the vocabulary from vocab_path."""
+    from hyslam_tpu.core.mapstate import MapCaps as JMapCaps
+    from hyslam_tpu.io.config import CameraConfig as JCameraConfig
+    from hyslam_tpu.io.config import SystemConfig as JSystemConfig
+
+    from helpers import DEFAULT_CAM as c
+
+    cc = JCameraConfig(fx=c.fx, fy=c.fy, cx=c.cx, cy=c.cy, width=c.width, height=c.height,
+                       bf=c.bf)
+    jcfg = JSystemConfig(cameras={"SLAM": cc}, caps=JMapCaps(K=32, L=4096, F=LOOP_F, O=8),
+                         vocab_path=vocab_path, async_tracking=async_tracking)
+    return jcfg, interop.system_config_from(jcfg, device="cpu")
+
+
+def run_loop_circuit(sysm, feats, to_frame, perturb, flush):
+    """Feed the circuit's features to a System; after the row that carries
+    >REINIT_OK, move the sub-map by LOOP_PERTURB with perturb(tracker, T)
+    (a bad re-initialization placement, the tiepoint re-measured to match).
+    Returns the returned rows and the frame of the perturbation."""
+    tracker = sysm.trackers["SLAM"]
+    out, nudged = [], None
+    for i, f in enumerate(feats):
+        tel = sysm.track_features(to_frame(f), LOOP_DT * i, frame_id=i)
+        out.append(tel)
+        state = tel.state if tel is not None else (
+            tracker.telemetry[-1].state if tracker.telemetry else "")
+        if nudged is None and ">REINIT_OK" in state:
+            perturb(tracker, synth.se3_exp(LOOP_PERTURB).astype(np.float32))
+            nudged = i
+    flush()
+    return out, nudged

@@ -52,7 +52,10 @@ SLICE_MODULES = [
     "hyslam_tpu_torch.slam.sensor_fusion", "hyslam_tpu_torch.estimators",
     "hyslam_tpu_torch.estimators.two_view", "hyslam_tpu_torch.estimators.pnp",
     "hyslam_tpu_torch.slam.mono_init", "hyslam_tpu_torch.slam.relocalization",
-    "hyslam_tpu_torch.slam.global_ba",
+    "hyslam_tpu_torch.slam.global_ba", "hyslam_tpu_torch.features.bow",
+    "hyslam_tpu_torch.features.vocab_io", "hyslam_tpu_torch.estimators.sim3_solver",
+    "hyslam_tpu_torch.solver.sim3_opt", "hyslam_tpu_torch.solver.pose_graph",
+    "hyslam_tpu_torch.slam.loop_closing",
 ]
 
 
@@ -307,8 +310,9 @@ def test_unported_paths_raise():
     NotImplementedError and names its ROADMAP step; none falls back. What
     loss recovery and sensor fusion brought no longer raises: forced-loss
     injection, sensor readings, REINITIALIZE, the CG solve, pose priors;
-    nor what the monocular camera brought: a monocular tracker, RELOCALIZE
-    (where a BoW recognizer, step 14b, raises)."""
+    nor what the monocular camera brought: a monocular tracker, RELOCALIZE,
+    which ranks its candidates through a BoW recognizer as the JAX package
+    does where it has one."""
     from hyslam_tpu_torch.core.frame import empty_features
     from hyslam_tpu_torch.core.mapstate import MapCaps
     from hyslam_tpu_torch.core.sensordata import SensorData
@@ -326,9 +330,25 @@ def test_unported_paths_raise():
     assert mono.track(empty_features(16), 0.0, 0).state == "RELOCALIZE"
     assert mono.reloc_log == [dict(frame_id=0, ok=False, candidates=0, pnp_solves=0,
                                    local_solves=0)]
-    mono.recognizer = object()
-    with pytest.raises(NotImplementedError, match="step 14b"):
-        mono.track(empty_features(16), 0.1, 1)
+    from hyslam_tpu.features import bow as j_bow
+    from hyslam_tpu_torch.features import bow
+
+    descs = np.random.default_rng(2).integers(0, 2**32, (200, 8), dtype=np.uint32)
+    vocab = bow.train_vocabulary(descs, k=4, depth=2, device="cpu")
+    mono.recognizer = bow.PlaceRecognizer(vocab, K=caps.K)
+    j_rec = j_bow.PlaceRecognizer(j_bow.Vocabulary(**interop.vocabulary_to_numpy(vocab)),
+                                  K=caps.K)
+    for k in (0, 1):   # two keyframes indexed by both recognizers
+        mono.recognizer.add_keyframe(k, interop.desc_to_torch(descs[16 * k:16 * k + 16]),
+                                     torch.ones(16, dtype=torch.bool))
+        j_rec.add_keyframe(k, jnp.asarray(descs[16 * k:16 * k + 16]), jnp.ones(16, bool))
+    q = descs[16:32]
+    covis = np.zeros((caps.K, caps.K), np.int32)
+    want = j_rec.detect_relocalization_candidates(jnp.asarray(q), jnp.ones(16, bool), covis)
+    assert want[0] == 1 and want == mono.recognizer.detect_relocalization_candidates(
+        interop.desc_to_torch(q), torch.ones(16, dtype=torch.bool), torch.from_numpy(covis))
+    # the empty map's frame: the recognizer ranks; no candidate has landmarks
+    assert mono.track(empty_features(16), 0.1, 1).state == "RELOCALIZE"
     with pytest.raises(NotImplementedError, match="step 19"):
         tracker.Tracker(cam=SMALL_CAM, caps=caps, mapping_status=object(), device="cpu")
     assert tracker.Tracker(cam=SMALL_CAM, caps=caps, reset_interval=15,

@@ -316,3 +316,42 @@ TRAJ_CASES = {
 def test_trajectory_matches_jax(name):
     assert_tree_close(tree_np(TRAJ_CASES[name](TORCH)),
                       tree_np(TRAJ_CASES[name](JAX)), atol=ATOL)
+
+
+def test_recycled_row_drops_stale_names_of_other_maps():
+    """A keyframe can name a landmark that is already bad (a frame's
+    association kept past its culling). When the row is recycled, the JAX
+    package leaves that name in place, so the keyframe names the new,
+    unrelated landmark. Across maps the alias forges a covisibility (on the
+    card it joined a re-initialized sub-map's keyframes to the root map's
+    start and hid the loop between them from detection), so the port clears
+    names held by keyframes of another map than the active one; within the
+    active map the alias stays, as in the JAX package."""
+    out = {}
+    for name, api in (("jax", JAX), ("torch", TORCH)):
+        M = api.M
+        ms, k0, k1, lm_idx = two_kfs(api)
+        bad = np.zeros(CAPS[1], bool)
+        bad[lm_idx[:2]] = True
+        ms = M.set_landmarks_bad(ms, bvec(api, bad))
+        assoc = np.full(32, -1, np.int32)
+        assoc[3] = lm_idx[0]                        # stale names
+        assoc[4] = lm_idx[1]
+        assoc[5] = lm_idx[2]
+        ms, k2 = M.add_keyframe(ms, feats(api, 6, 3), api.se3.identity(), 2.0, 2, 0,
+                                ivec(api, assoc))
+        # keyframes 0-2 stay in map 0; a sub-map becomes active, every
+        # virgin row is taken and the freed rows' countdowns run out, so the
+        # sub-map's next landmarks recycle the two bad rows
+        ms, _ = M.create_submap(ms)
+        virgin = ~np.asarray(ms.lm.valid)
+        n = int(virgin.sum()) + 2
+        ms = ms._replace(lm=ms.lm._replace(protection=ms.lm.protection * 0))
+        ms, got = M.add_landmarks(ms, api.arr(np.zeros((n, 3), np.float32)),
+                                  api.arr(np.asarray(ms.kf.desc)[0, :1].repeat(n, 0)), k1,
+                                  ivec(api, np.full(n, 20)), bvec(api, np.ones(n, bool)))
+        assert sorted(np.asarray(got)[-2:].tolist()) == sorted(lm_idx[:2].tolist())
+        out[name] = np.asarray(ms.kf.lm_id[2]) if name == "jax" else ms.kf.lm_id[2].numpy()
+    assert out["jax"][3] == lm_idx[0] and out["jax"][4] == lm_idx[1]      # aliases
+    assert out["torch"][3] == out["torch"][4] == -1
+    assert out["jax"][5] == out["torch"][5] == lm_idx[2]

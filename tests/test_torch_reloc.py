@@ -18,8 +18,10 @@ inlier masks within one point.
 Relocalization on a map that the JAX tracker built: the dense candidate
 ranking is equal, and both recover a keyframe's pose within
 tests/test_relocalization.py's bounds, within 1e-4 of each other and with
-inlier counts within 2%. The recognizer branch (BoW) raises, naming step
-14b. A monocular loss through both Trackers: tests/test_torch_reloc_mono.py."""
+inlier counts within 2%. Ranked through a BoW place recognizer (the shipped
+vocabulary, the map's keyframes indexed in both packages) the candidates
+are the JAX package's too. A monocular loss through both Trackers:
+tests/test_torch_reloc_mono.py."""
 
 import jax
 import jax.numpy as jnp
@@ -152,8 +154,20 @@ def test_rank_candidates_matches_jax(tracked_map, k):
     want = jreloc.rank_candidates(f.desc, f.valid, ms_j)
     got = reloc.rank_candidates(ft.desc, ft.valid, ms_t)
     assert got == want and len(got) == 5
-    with pytest.raises(NotImplementedError, match="step 14b"):
-        reloc.rank_candidates(ft.desc, ft.valid, ms_t, recognizer=object())
+    from hyslam_tpu.features import bow as j_bow
+    from hyslam_tpu.features.vocab_io import load_vocabulary as j_load
+    from hyslam_tpu_torch.features import bow
+    from hyslam_tpu_torch.features.vocab_io import load_vocabulary
+    from hyslam_tpu_torch.slam.system import default_vocab_path
+
+    j_rec = j_bow.PlaceRecognizer(j_load(default_vocab_path()), K=ms_t.K)
+    t_rec = bow.PlaceRecognizer(load_vocabulary(default_vocab_path(), "cpu"), K=ms_t.K)
+    for kf in range(int(ms_t.next_kf)):
+        j_rec.add_keyframe(kf, ms_j.kf.desc[kf], ms_j.kf.kp_valid[kf])
+        t_rec.add_keyframe(kf, ms_t.kf.desc[kf], ms_t.kf.kp_valid[kf])
+    want = jreloc.rank_candidates(f.desc, f.valid, ms_j, recognizer=j_rec)
+    got = reloc.rank_candidates(ft.desc, ft.valid, ms_t, recognizer=t_rec)
+    assert got == want and len(got) >= 1
 
 
 @pytest.mark.parametrize("k", [3, 6])

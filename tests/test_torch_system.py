@@ -215,8 +215,6 @@ def _cfg(**kw):
 
 
 @pytest.mark.parametrize("kw,step", [
-    (dict(enable_loop_closing=True), "step 14b"),
-    (dict(optimizer=OptimizerInfo(realtime=False), enable_loop_closing=True), "step 15b"),
     (dict(pipelined=True), "step 19"),
     (dict(cameras={"SLAM": CameraConfig(mono=True), "Imaging": CameraConfig(mono=True)}),
      "step 17"),
@@ -231,19 +229,24 @@ def test_unported_config_options_raise(kw, step):
 
 
 @pytest.mark.parametrize("kw", [dict(optimizer=OptimizerInfo(realtime=False)),
-                                dict(cameras={"SLAM": CameraConfig(mono=True)})])
+                                dict(cameras={"SLAM": CameraConfig(mono=True)}),
+                                dict(enable_loop_closing=True),
+                                dict(optimizer=OptimizerInfo(realtime=False),
+                                     enable_loop_closing=True)])
 def test_ported_config_options_build(kw):
-    """Periodic global BA and a monocular camera no longer raise."""
+    """Periodic global BA, a monocular camera and loop closing (alone and
+    with periodic global BA) no longer raise."""
     s = System(_cfg(**kw))
     assert s.trackers["SLAM"].is_mono == s.config.cameras["SLAM"].mono
+    assert s.loop_closers == {}
 
 
 def test_unported_entry_points_raise_and_defaults():
-    """The default config asks for loop closing and raises; every entry
-    point that is not ported names its step; with no device the System
-    takes the card or raises."""
-    with pytest.raises(NotImplementedError, match="enable_loop_closing=False"):
-        System(SystemConfig(device="cpu"))
+    """The default config (loop closing on) builds; every entry point that
+    is not ported names its step; with no device the System takes the card
+    or raises."""
+    d = System(SystemConfig(device="cpu"))
+    assert d.config.enable_loop_closing and d.loop_closers == {}
     s = System(_cfg())
     img = np.zeros((480, 640), np.float32)
     # a flat image: nothing to extract, the tracker stays in INITIALIZE
