@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's stereo front end, tracker and System on one CUDA card,
 through a loss of tracking, with sensor readings, with a monocular camera,
-with periodic global BA and with loop closing.
+with periodic global BA, with loop closing, with a second (Imaging) camera
+and with the SURF feature family.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card and
 the CUDA toolkit:
@@ -13,8 +14,11 @@ It exits non-zero, printing no result, where CUDA is not available. Phases:
 0. The card: its name and power limit, and the build of the port's CUDA
    kernels from ``hyslam_tpu_torch/csrc`` with nvcc for sm_90a.
 1. Kernel K1 (the whole pose-only LM schedule, ``csrc/pose_opt.cu``)
-   against its plain PyTorch versions on the card, at N = 1024 observations,
-   on the three problems of tests/test_pose_opt_pallas.py (stereo, 25%
+   against its plain PyTorch versions on the card, at N = 1024 observations
+   and at N = 3072 (the Imaging camera's problems: rows past 1024 in shared
+   memory; and N_ODD = 4093 on the outlier problem, all four chunks and the
+   scalar load path), on the three problems of
+   tests/test_pose_opt_pallas.py (stereo, 25%
    outliers, mono) with that file's bounds: against the two-pass solver
    ``pose_optimization`` and against ``pose_optimization_fused_schedule``,
    the plain form of the kernel's own one-pass schedule. Beyond that file's
@@ -27,8 +31,9 @@ It exits non-zero, printing no result, where CUDA is not available. Phases:
    put exactly one row, the kernel, on the device), and the plain version;
    the wrapper at the schedules 0x0, 1x1 and 4x10 (rounds x iterations),
    which read the fixed part of a call and the time an iteration adds
-   apart; and 4x10 at B = 8 and B = 132 independent problems. The bound
-   beside these is computed from this run's shapes and counts.
+   apart; and 4x10 at B = 8 and B = 132 independent problems. The same
+   timings (but B) again at N = 3072. The bound beside these is computed
+   from this run's shapes and counts.
 2. The slice at the reference's SLAM-camera operating point: a rendered
    1280x720 stereo sequence of 30 frames (4000 points, fx 700, bf 84, 0.08 m
    forward per frame), ORB with 1000 features over 8 levels, capacity 1024,
@@ -165,6 +170,33 @@ It exits non-zero, printing no result, where CUDA is not available. Phases:
    ``compute_sim3``, of ``correct`` with the essential graph and of the
    post-loop global BA; frames/s of 8a and 8b; the card).
 
+9. The dual camera and the SURF family. *9a*: a ``System`` with the SLAM
+   camera of phases 2-8 and the reference's Imaging camera (native
+   2704x2028, fx = fy = 1829, ``scale`` 0.5: 1352x1014 working, monocular,
+   ORB 3000 x 8, the rig of tests/test_dual_camera.py), both in
+   MapCaps(K=64, L=16384, F=3072, O=8), loop closing on (the config's
+   default): phase 4's 60 frames, an Imaging frame rendered at the native
+   size every IMG_EVERY-th frame, the frames DARK flat in both cameras,
+   ``place_imaging_frame`` on every Imaging frame while SLAM tracks, then
+   ``run_imaging_bundle_adjustment`` (timed apart from its sparsification)
+   and the exports. Gates (tests/test_dual_camera.py's): SLAM ends NORMAL
+   within phase 5's ATE bound before the blackout and 6a's over the run;
+   >= 6 Imaging keyframes; the Imaging camera NULL while SLAM is lost and
+   POSTINIT or NORMAL at the end; >= 2 Imaging sub-maps, all registered
+   after imaging BA; the placer keeps some frames and skips some; the
+   Imaging keyframes' ATE against the rendered truth < 0.35 m after
+   finalization; the export files; K1's launches equal what both trackers'
+   telemetry calls for. *9b*: the same, async (commit_lag 2), over N_ASYNC9
+   frames. *9c*: a stereo System with ``family: SURF`` at phase 5's
+   operating point over N_SURF frames (every frame after the first tracked,
+   ATE < 0.08 m, K1 as the telemetry calls for), the card's SURF
+   extraction against the CPU's on SURF_CHECK frames (equal keypoints and
+   levels, < 0.5% descriptor bits apart), and SURF's ms at 1280x720 and at
+   the Imaging camera's 1352x1014 with 3000 features. Printed: the ms of a
+   frame of each camera, of a placer call, of imaging BA and of
+   sparsification (and what it culled), the synchronising calls of a
+   steady Imaging frame, peak device memory (a ``phase 9 timing:`` line).
+
 Prints the card line, one JSON line of kernel results (with the kernel's
 time: its bound and what sets it, its fixed part and its time an
 iteration), and last
@@ -190,10 +222,12 @@ N_TRACK = 60                  # phase 4; phase 2 takes the first N_FRAMES
 FRAME_DT = 0.05               # s between frames
 TRACK_CAPS = (64, 16384, 1024, 8)   # MapCaps K, L, F, O of bench.py
 CAPACITY = 1024
+IMG_CAPS = (64, 16384, 3072, 8)    # phase 9's shared arena: F for 3000 features
 N_LANDMARKS = 4096
 N_POINTS = 4000
 N_TIMED = 100
 N_TIMED_PLAIN = 20            # calls a run of the plain solver (160 ms a call)
+N_ODD = 4093                  # phase 1: a problem of four chunks, N % 4 != 0
 # per-frame pose bounds against the rendered truth. The map is seeded from
 # frame 0 only, so the error grows as the camera moves away from it: frames
 # 1-3 are held to 0.05 m, every frame to 0.08 m; at this size the port's
@@ -292,6 +326,20 @@ K8 = 128
 # 0.40 m of tests/test_async_tracking.py's loop test
 MAX_ATE_LOOP = 0.085
 MAX_LOOP_GAP_M = 1.0          # closing keyframe to candidate, in the rendered truth
+# phase 9: the reference's Imaging camera (SURVEY.md, BASELINE.md: a GoPro at
+# 2704x2028, fx = fy = 1829, scale 0.5, ORB 3000 x 8 x 1.2) on the rig of
+# tests/test_dual_camera.py, one frame every IMG_EVERY SLAM frames, both
+# cameras in the IMG_CAPS arena; a keyframe at least every 2nd Imaging frame,
+# as that test's policy. The SLAM frames DARK are flat, and so are the
+# Imaging frames among them. Gates of tests/test_dual_camera.py.
+IMG_NATIVE = dict(fx=1829.0, fy=1829.0, cx=1352.0, cy=1014.0, width=2704, height=2028)
+IMG_SCALE, IMG_FEATURES, IMG_EVERY = 0.5, 3000, 2
+IMG_TCAM = (0.0, 0.06, 0.02, 0.15, -0.1, 0.0)
+MIN_IMG_KEYFRAMES, MAX_ATE_IMAGING = 6, 0.35
+N_ASYNC9 = 60                 # frames of 9b
+# 9c: a stereo System with family SURF at phase 5's operating point
+N_SURF, SURF_CHECK = 20, (0, 10, 19)
+MAX_SURF_BIT_FRACTION = 0.005
 
 
 def log(msg: str) -> None:
@@ -382,102 +430,119 @@ def phase1(dev):
         "outliers": (0.25, 1.0, 0.2, 0.02),
         "mono": (0.0, 0.0, 0.2, 0.05),
     }
-    max_abs_err = 0.0
-    timed = None
-    for i, (name, (out_frac, st_frac, rot_b, t_b)) in enumerate(cases.items()):
-        cam, T_true, args = pose_problem(i, out_frac, st_frac, CAPACITY)
-        targs = [torch.from_numpy(np.array(a)).to(dev) for a in args]
-        k = pose_optimization_fast(cam, *targs)
-        Tk = k.Tcw.cpu().numpy()
-        if not (np.isfinite(Tk).all() and Tk.shape == (4, 4)):
-            raise AssertionError(f"phase 1 {name}: kernel pose not finite: {Tk}")
-        rot, t = pose_error(Tk, T_true)
-        if not (rot < rot_b and t < t_b):
-            raise AssertionError(f"phase 1 {name}: kernel off the truth ({rot}, {t})")
-        # against the two-pass plain solver and the plain form of its own
-        # one-pass schedule
-        fused, accepts = pose_optimization_fused_schedule(cam, *targs)
-        for other, p in (("plain", pose_optimization(cam, *targs)), ("fused plain", fused)):
-            Tp = p.Tcw.cpu().numpy()
-            d_rot, d_t = pose_error(Tk, Tp)
-            d_inl = abs(int(k.num_inliers) - int(p.num_inliers))
-            err = float(np.abs(Tk - Tp).max())
-            max_abs_err = max(max_abs_err, err)
-            log(f"phase 1 {name}: truth rot {rot:.5f} deg t {t:.6f} | vs {other} "
-                f"d_rot {d_rot:.6f} d_t {d_t:.7f} inliers {int(k.num_inliers)} vs "
-                f"{int(p.num_inliers)} max|dT| {err:.3e}")
-            if not (d_rot < MAX_D_ROT and d_t < MAX_D_T and d_inl <= MAX_D_INLIERS
-                    and err < MAX_ABS_DT_PROBLEM and d_inl <= MAX_D_INLIERS_PROBLEM):
-                raise AssertionError(f"phase 1 {name}: kernel and {other} disagree "
-                                     f"(d_rot {d_rot}, d_t {d_t}, max|dT| {err}, "
-                                     f"inliers {d_inl} apart)")
-        log(f"phase 1 {name}: fused plain schedule accepted {int(accepts.sum())} of "
-            f"{accepts.numel()} steps")
-        # the kernel's chi2 against the plain evaluation at the kernel's pose
-        _, X, uv, ur, inv_s2, valid, stereo = targs
-        want = _final_chi2(cam, k.Tcw, X, uv, ur, inv_s2, stereo)
-        marker = want == 1e9
-        diff = (k.chi2 - want).abs()
-        chi2_ok = (torch.equal(k.chi2 == 1e9, marker)
-                   and bool((diff <= CHI2_RTOL * want.abs() + CHI2_ATOL)[~marker].all()))
-        rel = float((diff / want.abs().clamp_min(1.0))[~marker].max())
-        log(f"phase 1 {name}: kernel chi2 vs plain at the kernel's pose: max "
-            f"|d| / max(chi2, 1) {rel:.3e}, {int(marker.sum())} behind-camera markers")
-        if not (chi2_ok and k.chi2.shape == want.shape
-                and torch.equal(k.inliers, valid & (k.chi2 <= torch.where(stereo, 7.815, 5.991)))
-                and int(k.num_inliers) == int(k.inliers.sum())):
-            raise AssertionError(f"phase 1 {name}: the kernel's chi2, inlier mask and "
-                                 "count do not agree")
-        if name == "stereo":
-            timed = (cam, targs, int(valid.sum()), int(k.num_inliers), k.Tcw)
 
-    # kernel: the wrapper alone, on inputs already in its layout; fast: the
-    # solver entry point, which hands the wrapper views of its arguments
-    cam, targs, n_valid, n_inl, T_one = timed
-    kargs = [x[None] for x in targs]
-    fns = {
-        "plain": lambda: pose_optimization(cam, *targs),
-        "kernel": lambda: pose_optimization_cuda(cam, *kargs),
-        "fast": lambda: pose_optimization_fast(cam, *targs),
-    }
-    for fn in fns.values():                             # warm all three
-        for _ in range(3):
+    def check(n_obs: int, names=tuple(cases)):
+        """The kernel against both plain solvers on the cases at n_obs
+        observations. Returns (max|dT|, the stereo case for timing)."""
+        max_abs_err, timed = 0.0, None
+        for i, (name, (out_frac, st_frac, rot_b, t_b)) in enumerate(cases.items()):
+            if name not in names:
+                continue
+            tag = f"phase 1 N={n_obs} {name}"
+            cam, T_true, args = pose_problem(i, out_frac, st_frac, n_obs)
+            targs = [torch.from_numpy(np.array(a)).to(dev) for a in args]
+            k = pose_optimization_fast(cam, *targs)
+            Tk = k.Tcw.cpu().numpy()
+            if not (np.isfinite(Tk).all() and Tk.shape == (4, 4)):
+                raise AssertionError(f"{tag}: kernel pose not finite: {Tk}")
+            rot, t = pose_error(Tk, T_true)
+            if not (rot < rot_b and t < t_b):
+                raise AssertionError(f"{tag}: kernel off the truth ({rot}, {t})")
+            # against the two-pass plain solver and the plain form of its own
+            # one-pass schedule
+            fused, accepts = pose_optimization_fused_schedule(cam, *targs)
+            for other, p in (("plain", pose_optimization(cam, *targs)),
+                             ("fused plain", fused)):
+                Tp = p.Tcw.cpu().numpy()
+                d_rot, d_t = pose_error(Tk, Tp)
+                d_inl = abs(int(k.num_inliers) - int(p.num_inliers))
+                err = float(np.abs(Tk - Tp).max())
+                max_abs_err = max(max_abs_err, err)
+                log(f"{tag}: truth rot {rot:.5f} deg t {t:.6f} | vs {other} "
+                    f"d_rot {d_rot:.6f} d_t {d_t:.7f} inliers {int(k.num_inliers)} vs "
+                    f"{int(p.num_inliers)} max|dT| {err:.3e}")
+                if not (d_rot < MAX_D_ROT and d_t < MAX_D_T and d_inl <= MAX_D_INLIERS
+                        and err < MAX_ABS_DT_PROBLEM and d_inl <= MAX_D_INLIERS_PROBLEM):
+                    raise AssertionError(f"{tag}: kernel and {other} disagree "
+                                         f"(d_rot {d_rot}, d_t {d_t}, max|dT| {err}, "
+                                         f"inliers {d_inl} apart)")
+            log(f"{tag}: fused plain schedule accepted {int(accepts.sum())} of "
+                f"{accepts.numel()} steps")
+            # the kernel's chi2 against the plain evaluation at the kernel's pose
+            _, X, uv, ur, inv_s2, valid, stereo = targs
+            want = _final_chi2(cam, k.Tcw, X, uv, ur, inv_s2, stereo)
+            marker = want == 1e9
+            diff = (k.chi2 - want).abs()
+            chi2_ok = (torch.equal(k.chi2 == 1e9, marker)
+                       and bool((diff <= CHI2_RTOL * want.abs() + CHI2_ATOL)[~marker].all()))
+            rel = float((diff / want.abs().clamp_min(1.0))[~marker].max())
+            log(f"{tag}: kernel chi2 vs plain at the kernel's pose: max "
+                f"|d| / max(chi2, 1) {rel:.3e}, {int(marker.sum())} behind-camera markers")
+            if not (chi2_ok and k.chi2.shape == want.shape
+                    and torch.equal(k.inliers,
+                                    valid & (k.chi2 <= torch.where(stereo, 7.815, 5.991)))
+                    and int(k.num_inliers) == int(k.inliers.sum())):
+                raise AssertionError(f"{tag}: the kernel's chi2, inlier mask and "
+                                     "count do not agree")
+            if name == "stereo":
+                timed = (cam, targs, int(valid.sum()), int(k.num_inliers), k.Tcw)
+        return max_abs_err, timed
+
+    def schedules(cam, kargs, n_obs):
+        """The chain: the fixed part of a problem (load, final pass) and the
+        time an iteration adds, from three schedules in turns. Read from the
+        kernel's own duration on the device (the profiler's rows): between
+        CUDA events a call shorter than the host's pace of launching shows
+        that pace, which is printed beside it."""
+        sched = {s: ([], []) for s in ((0, 0), (1, 1), (4, 10))}
+        for s in (*sched, *reversed(sched)):
+            fn = lambda: pose_optimization_cuda(cam, *kargs, n_rounds=s[0],
+                                                iters_per_round=s[1])
             fn()
-    torch.cuda.synchronize()
-    runs = {k: [] for k in fns}
-    for which in ("plain", "kernel", "fast", "fast", "kernel", "plain"):
-        runs[which].append(cuda_ms(fns[which], N_TIMED_PLAIN if which == "plain" else N_TIMED))
-    log(f"phase 1 timing, N={CAPACITY}, {N_TIMED} calls per run ({N_TIMED_PLAIN} of the "
-        f"plain solver), ms/call: "
-        + ", ".join(f"{k} {v}" for k, v in runs.items()))
+            sched[s][0].append(cuda_ms(fn, N_TIMED))
+            us = [us for _, us in device_rows(fn, N_TIMED)]  # the profiler may drop a row
+            if not 0.9 * N_TIMED <= len(us) <= N_TIMED:
+                raise AssertionError(f"phase 1: {len(us)} device rows for {N_TIMED} launches")
+            sched[s][1].append(statistics.mean(us) / 1e3)
+        fixed_ms = statistics.mean(sched[(0, 0)][1])
+        per_iter_us = 1e3 * (statistics.mean(sched[(4, 10)][1]) - fixed_ms) / 40
+        log(f"phase 1 schedules at N={n_obs} B=1 (rounds x iterations), ms between events "
+            "a call: " + ", ".join(f"{r}x{i} {v[0]}" for (r, i), v in sched.items()))
+        log(f"phase 1 schedules at N={n_obs} B=1, ms on the device a call: "
+            + ", ".join(f"{r}x{i} {v[1]}" for (r, i), v in sched.items())
+            + f" -> fixed {fixed_ms:.5f} ms, {per_iter_us:.3f} us an iteration")
+        return fixed_ms, per_iter_us
+
+    def timings(cam, targs, n_obs, n_plain):
+        """kernel: the wrapper alone, on inputs already in its layout; fast:
+        the solver entry point, which hands the wrapper views of its
+        arguments; plain: the two-pass plain solver. In turns."""
+        kargs = [x[None] for x in targs]
+        fns = {
+            "plain": lambda: pose_optimization(cam, *targs),
+            "kernel": lambda: pose_optimization_cuda(cam, *kargs),
+            "fast": lambda: pose_optimization_fast(cam, *targs),
+        }
+        for fn in fns.values():                             # warm all three
+            for _ in range(3):
+                fn()
+        torch.cuda.synchronize()
+        runs = {k: [] for k in fns}
+        for which in ("plain", "kernel", "fast", "fast", "kernel", "plain"):
+            runs[which].append(cuda_ms(fns[which], n_plain if which == "plain" else N_TIMED))
+        log(f"phase 1 timing, N={n_obs}, {N_TIMED} calls per run ({n_plain} of the "
+            f"plain solver), ms/call: " + ", ".join(f"{k} {v}" for k, v in runs.items()))
+        return fns, kargs, runs
+
+    max_abs_err, (cam, targs, n_valid, n_inl, T_one) = check(CAPACITY)
+    fns, kargs, runs = timings(cam, targs, CAPACITY, N_TIMED_PLAIN)
     k_ms, fast_ms = statistics.mean(runs["kernel"]), statistics.mean(runs["fast"])
     rows = [name for name, _ in device_rows(fns["fast"])]
     log(f"phase 1: one pose_optimization_fast call put on the device: {rows}")
     if len(rows) != 1 or abs(fast_ms - k_ms) >= MAX_FAST_OVER_KERNEL_MS:
         raise AssertionError(f"phase 1: fast {fast_ms} ms vs kernel {k_ms} ms, "
                              f"{len(rows)} device rows a call")
-
-    # the chain: the fixed part of a problem (load, final pass) and the time
-    # an iteration adds, from three schedules in turns. Read from the
-    # kernel's own duration on the device (the profiler's rows): between
-    # CUDA events a call shorter than the host's pace of launching shows
-    # that pace, which is printed beside it.
-    sched = {s: ([], []) for s in ((0, 0), (1, 1), (4, 10))}
-    for s in (*sched, *reversed(sched)):
-        fn = lambda: pose_optimization_cuda(cam, *kargs, n_rounds=s[0], iters_per_round=s[1])
-        fn()
-        sched[s][0].append(cuda_ms(fn, N_TIMED))
-        us = [us for _, us in device_rows(fn, N_TIMED)]     # the profiler may drop a row
-        if not 0.9 * N_TIMED <= len(us) <= N_TIMED:
-            raise AssertionError(f"phase 1: {len(us)} device rows for {N_TIMED} launches")
-        sched[s][1].append(statistics.mean(us) / 1e3)
-    fixed_ms = statistics.mean(sched[(0, 0)][1])
-    per_iter_us = 1e3 * (statistics.mean(sched[(4, 10)][1]) - fixed_ms) / 40
-    log("phase 1 schedules at B=1 (rounds x iterations), ms between events a call: "
-        + ", ".join(f"{r}x{i} {v[0]}" for (r, i), v in sched.items()))
-    log("phase 1 schedules at B=1, ms on the device a call: "
-        + ", ".join(f"{r}x{i} {v[1]}" for (r, i), v in sched.items())
-        + f" -> fixed {fixed_ms:.5f} ms, {per_iter_us:.3f} us an iteration")
+    fixed_ms, per_iter_us = schedules(cam, kargs, CAPACITY)
     for B in (8, 132):
         rows = [pose_problem(seed, 0.0, 1.0, CAPACITY)[2] for seed in range(B)]
         bargs = [torch.from_numpy(np.stack([np.asarray(r[j]) for r in rows])).to(dev)
@@ -491,10 +556,26 @@ def phase1(dev):
         log(f"phase 1 B={B} independent problems, 4x10, ms/call: "
             f"{[cuda_ms(fn, N_TIMED) for _ in range(2)]}")
     bound = k1_bound(CAPACITY, n_valid, n_inl, 4, 10)
-    log(f"phase 1 bound for one 4x10 problem: {bound}")
+    log(f"phase 1 bound for one 4x10 problem at N={CAPACITY}: {bound}")
+
+    # the Imaging camera's problems (phase 9): one row a feature slot of
+    # F = IMG_CAPS[2]; the kernel's shared-memory chunks. N_ODD takes the
+    # scalar load path (N % 4 != 0) over all four chunks.
+    err_big, (cam3, targs3, n_valid3, n_inl3, _) = check(IMG_CAPS[2])
+    err_odd, _ = check(N_ODD, names=("outliers",))
+    max_abs_err = max(max_abs_err, err_big, err_odd)
+    _, kargs3, runs3 = timings(cam3, targs3, IMG_CAPS[2], N_TIMED_PLAIN // 2)
+    fixed3, per_iter3 = schedules(cam3, kargs3, IMG_CAPS[2])
+    bound3 = k1_bound(IMG_CAPS[2], n_valid3, n_inl3, 4, 10)
+    log(f"phase 1 bound for one 4x10 problem at N={IMG_CAPS[2]}: {bound3}")
     return {"max_abs_err": max_abs_err, "ms": k_ms, "plain_ms": statistics.mean(runs["plain"]),
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-            "fixed_ms": fixed_ms, "per_iter_us": per_iter_us, "library_ms": None}
+            "fixed_ms": fixed_ms, "per_iter_us": per_iter_us, "library_ms": None,
+            f"n{IMG_CAPS[2]}": {
+                "ms": statistics.mean(runs3["kernel"]),
+                "plain_ms": statistics.mean(runs3["plain"]),
+                "bound_ms": bound3["bound_ms"], "bound_by": bound3["bound_by"],
+                "fixed_ms": fixed3, "per_iter_us": per_iter3}}
 
 
 def profile_frames(track, poses, dev, frame_ms: float, n: int = 5) -> None:
@@ -2016,6 +2097,244 @@ def phase8(cam, cfg, dev):
     return total
 
 
+def phase9(cam, cfg, poses, pairs, pts):
+    """The dual camera at the reference's settings, and the SURF family;
+    see the module docstring. Returns the K1 launches of its gated runs."""
+    import tempfile
+
+    from hyslam_tpu_torch.core.mapstate import MapCaps
+    from hyslam_tpu_torch.features.extractor import ExtractorConfig
+    from hyslam_tpu_torch.features.factory import extract_hessian
+    from hyslam_tpu_torch.geometry.camera import Camera
+    from hyslam_tpu_torch.io.config import CameraConfig, SystemConfig
+    from hyslam_tpu_torch.io.evaluate import camera_centers
+    from hyslam_tpu_torch.ops.pose_opt_cuda import pose_optimization_cuda
+    from hyslam_tpu_torch.ops.pyramid import preprocess_image
+    from hyslam_tpu_torch.slam.keyframe_policy import KeyFramePolicyParams
+    from hyslam_tpu_torch.slam.sparsify import sparsify_map
+    from hyslam_tpu_torch.slam.system import System
+    from hyslam_tpu_torch.slam.tracker import State
+    from hyslam_tpu_torch.utils import synth
+
+    failed = []
+    total = 0
+
+    def gate(name, ok):
+        log(f"phase 9 gate {'ok' if ok else 'FAILED'}: {name}")
+        if not ok:
+            failed.append(name)
+
+    dev = pairs.device
+    n = len(poses)
+    Tcam = synth.se3_exp(IMG_TCAM).astype(np.float32)
+    native = Camera(bf=0.0, **IMG_NATIVE)
+    t0 = time.perf_counter()
+    imgs = {}
+    for i in range(0, n, IMG_EVERY):
+        if DARK[0] <= i < DARK[1]:
+            imgs[i] = torch.full((native.height, native.width), 20.0, device=dev)
+        else:
+            imgs[i] = torch.from_numpy(synth.render_world(
+                native, (Tcam @ poses[i]).astype(np.float32), pts,
+                blob_scale=1.0 / IMG_SCALE)[0]).to(dev)
+    log(f"rendered {len(imgs)} Imaging frames {native.width}x{native.height} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    dark_pairs = synth.blackout(pairs, *DARK)
+    truth = np.stack(poses)
+
+    def config(**kw):
+        slam = CameraConfig(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, width=cam.width,
+                            height=cam.height, bf=cam.bf, th_depth=cam.th_depth,
+                            extractor=cfg)
+        img = CameraConfig(name="Imaging", scale=IMG_SCALE, mono=True, Tcam=Tcam.tolist(),
+                           extractor=ExtractorConfig(n_features=IMG_FEATURES, n_levels=8),
+                           policy=KeyFramePolicyParams(max_kf_interval=2 * IMG_EVERY),
+                           **IMG_NATIVE)
+        return SystemConfig(cameras={"SLAM": slam, "Imaging": img}, caps=MapCaps(*IMG_CAPS),
+                            **kw)
+
+    def run(name, n_frames, **kw):
+        """One dual-camera run; returns its timing record."""
+        sysm = System(config(**kw))
+        slam_tr, img_tr = sysm.trackers["SLAM"], sysm.trackers["Imaging"]
+        rec = dict(slam_ms=[], img_ms=[], place_ms=[], keeps=[], pairs=[], sync=[])
+        torch.cuda.reset_peak_memory_stats()
+        pose_optimization_cuda.launches = 0
+        t_run = time.perf_counter()
+        for i in range(n_frames):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sysm.track_stereo(dark_pairs[i, 0], dark_pairs[i, 1], FRAME_DT * i, frame_id=i)
+            torch.cuda.synchronize()
+            rec["slam_ms"].append((i, 1e3 * (time.perf_counter() - t)))
+            if i % IMG_EVERY:
+                continue
+            img_frame = lambda: sysm.track_monocular(imgs[i], FRAME_DT * i, camera="Imaging",
+                                                     frame_id=i)
+            t = time.perf_counter()
+            if name == "a" and N_WARM <= i < DARK[0] and img_tr.state == State.NORMAL:
+                rec["sync"].append(sync_sites(img_frame))
+            else:
+                img_frame()
+            torch.cuda.synchronize()
+            rec["img_ms"].append((i, 1e3 * (time.perf_counter() - t)))
+            rec["pairs"].append((i, slam_tr.state, img_tr.state))
+            if slam_tr.state in (State.NORMAL, State.POSTINIT):
+                t = time.perf_counter()
+                keep, _ = sysm.place_imaging_frame(FRAME_DT * i)
+                rec["place_ms"].append(1e3 * (time.perf_counter() - t))
+                rec["keeps"].append(bool(keep))
+        sysm.flush()
+        secs = time.perf_counter() - t_run
+        launches = pose_optimization_cuda.launches
+        expected = expected_launches(slam_tr) + expected_launches(img_tr)
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        for t in img_tr.telemetry:
+            log(f"  9{name} Imaging frame {t.frame_id}: {t.state} motion {t.n_motion} inliers "
+                f"{t.n_inliers} local {t.n_local} kf {t.kf_inserted}")
+        idx, ate, errs = trajectory_errors(slam_tr, poses)
+        before = idx < DARK[0]
+        ate_before = float(np.sqrt(np.mean(np.square(np.asarray(errs)[before]))))
+        n_img_kf = int(img_tr.ms.next_kf)
+        n_maps = int(img_tr.ms.maps.n_maps)
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sysm.run_imaging_bundle_adjustment(sparsify_overlap=None)
+        torch.cuda.synchronize()
+        ba_ms = 1e3 * (time.perf_counter() - t)
+        t = time.perf_counter()
+        img_tr.ms, n_culled = sparsify_map(img_tr.ms, sysm.cameras["Imaging"], 0.98)
+        torch.cuda.synchronize()
+        sparsify_ms = 1e3 * (time.perf_counter() - t)
+        registered = img_tr.ms.maps.registered[:n_maps].cpu().numpy()
+        kf_ok = (img_tr.ms.kf.valid & ~img_tr.ms.kf.bad).cpu().numpy()
+        sel = np.nonzero(kf_ok)[0]
+        est = img_tr.ms.kf.Tcw.cpu().numpy()[sel]
+        frames = np.rint(img_tr.ms.kf.timestamp.cpu().numpy()[sel] / FRAME_DT).astype(int)
+        gt = np.stack([Tcam @ truth[f] for f in frames])
+        img_err = np.linalg.norm(camera_centers(est) - camera_centers(gt), axis=-1)
+        img_ate = float(np.sqrt(np.mean(img_err ** 2)))
+        with tempfile.TemporaryDirectory() as d:
+            sysm.export_colmap(d)
+            sysm.save_keyframes_agisoft(os.path.join(d, "imaging.xml"), camera="Imaging")
+            sysm.save_trajectory(os.path.join(d, "slam_traj.tsv"))
+            files = [os.path.join(d, "SLAM", "images.txt"),
+                     os.path.join(d, "Imaging", "images.txt"),
+                     os.path.join(d, "imaging.xml"), os.path.join(d, "slam_traj.tsv")]
+            sizes = [os.path.getsize(f) if os.path.exists(f) else 0 for f in files]
+
+        null_while_lost = [img for _, slam, img in rec["pairs"] if slam == State.REINITIALIZE]
+        log(f"phase 9{name} dual camera {'async' if kw.get('async_tracking') else 'sync'}: "
+            f"SLAM {slam_tr.state.name}, ATE {ate:.6f} m ({ate_before:.6f} m before the "
+            f"blackout), worst frame {max(errs):.6f} m; Imaging {img_tr.state.name}, "
+            f"{n_img_kf} keyframes in {n_maps} sub-maps, registered {registered.tolist()}, "
+            f"states while SLAM was lost {[s.name for s in null_while_lost]}, placer kept "
+            f"{sum(rec['keeps'])} of {len(rec['keeps'])}; imaging BA {ba_ms:.1f} ms, "
+            f"sparsification {sparsify_ms:.1f} ms culled {n_culled}, Imaging keyframe ATE "
+            f"{img_ate:.6f} m over {len(sel)} (worst {img_err.max():.6f} m); exports "
+            f"{sizes} bytes; K1 launches {launches}, expected {expected}; {secs:.1f} s")
+        gate(f"9{name}: SLAM ends in NORMAL, ATE < {MAX_ATE} m before the blackout (phase 5's "
+             f"bound) and < {MAX_ATE_BLACKOUT} m over the run (6a's)",
+             slam_tr.state == State.NORMAL and ate_before < MAX_ATE and ate < MAX_ATE_BLACKOUT)
+        gate(f"9{name}: the Imaging camera makes >= {MIN_IMG_KEYFRAMES} keyframes",
+             n_img_kf >= MIN_IMG_KEYFRAMES)
+        gate(f"9{name}: the Imaging camera is NULL while SLAM is lost and ends in POSTINIT or "
+             "NORMAL", bool(null_while_lost) and all(s == State.NULL for s in null_while_lost)
+             and img_tr.state in (State.POSTINIT, State.NORMAL))
+        gate(f"9{name}: >= 2 Imaging sub-maps, every one registered after imaging BA",
+             n_maps >= 2 and bool(registered.all()))
+        gate(f"9{name}: the placer keeps some frames and skips some",
+             any(rec["keeps"]) and not all(rec["keeps"]))
+        gate(f"9{name}: Imaging keyframe ATE {img_ate:.4f} < {MAX_ATE_IMAGING} m after "
+             "finalization", img_ate < MAX_ATE_IMAGING)
+        gate(f"9{name}: the exports exist and are not empty", all(x > 0 for x in sizes))
+        gate(f"9{name}: K1 launches {launches} == {expected} from both trackers' telemetry",
+             launches == expected and launches > 0)
+        steady = lambda rows: statistics.median(ms for i, ms in rows if N_WARM <= i < DARK[0])
+        rec.update(launches=launches, secs=secs, peak_mb=peak_mb, ba_ms=ba_ms,
+                   sparsify_ms=sparsify_ms, n_culled=n_culled,
+                   slam_frame_ms=steady(rec["slam_ms"]), img_frame_ms=steady(rec["img_ms"]),
+                   place_ms=statistics.median(rec["place_ms"]) if rec["place_ms"] else None)
+        return rec
+
+    rec_a = run("a", n)
+    total += rec_a["launches"]
+    per_frame = rec_a["sync"]
+    if per_frame:
+        rep = max(per_frame, key=lambda s_: sum(s_.values()))
+        log("phase 9a synchronising calls a steady sync Imaging frame (NORMAL, frames "
+            f"{N_WARM}-{DARK[0] - 1}): " + json.dumps({
+                "frames": len(per_frame),
+                "median": statistics.median(sum(s_.values()) for s_ in per_frame),
+                "max": sum(rep.values()), "sites_of_the_max": rep}))
+    rec_b = run("b", N_ASYNC9, async_tracking=True, commit_lag=2)
+    total += rec_b["launches"]
+
+    # ---- 9c: SURF
+    surf = ExtractorConfig(n_features=cfg.n_features, n_levels=cfg.n_levels, family="SURF")
+    sysm = make_system(cam, surf)
+    tr = sysm.trackers["SLAM"]
+    pose_optimization_cuda.launches = 0
+    t = time.perf_counter()
+    for i in range(N_SURF):
+        sysm.track_stereo(pairs[i, 0], pairs[i, 1], FRAME_DT * i, frame_id=i)
+    sysm.flush()
+    secs_c = time.perf_counter() - t
+    launches = pose_optimization_cuda.launches
+    total += launches
+    idx, ate_c, errs_c = trajectory_errors(tr, poses)
+    tels = tr.telemetry
+    log(f"phase 9c SURF stereo: {[t.state for t in tels]}, inliers "
+        f"{[t.n_inliers for t in tels]}, ATE {ate_c:.6f} m, worst frame {max(errs_c):.6f} m, "
+        f"{sum(t.kf_inserted >= 0 for t in tels)} keyframes, K1 launches {launches}, "
+        f"expected {expected_launches(tr)}, {secs_c:.1f} s")
+    gate(f"9c: every SURF frame after the first tracked, ATE < {MAX_T} m",
+         len(tels) == N_SURF and all(tracked_row(t) for t in tels[1:]) and ate_c < MAX_T)
+    gate(f"9c: K1 launches {launches} == {expected_launches(tr)} from the telemetry",
+         launches == expected_launches(tr) and launches > 0)
+    worst_bits = 0.0
+    for i in SURF_CHECK:
+        g = preprocess_image(pairs[i, 0], 1.0)
+        a = extract_hessian(g, surf, CAPACITY)
+        b = extract_hessian(g.cpu(), surf, CAPACITY)
+        same = all(torch.equal(getattr(a, k).cpu(), getattr(b, k)) for k in ("uv", "level", "valid"))
+        ba_ = (a.desc.cpu() ^ b.desc).view(torch.uint8).numpy()
+        frac = float(np.unpackbits(ba_).mean())
+        worst_bits = max(worst_bits, frac)
+        log(f"phase 9c frame {i}: SURF on the card vs the CPU: equal keypoints and levels "
+            f"{same}, {int(a.valid.sum())} valid, descriptor bits differing {frac:.6f}")
+        gate(f"9c frame {i}: the card's SURF keypoints equal the CPU's, descriptor bits "
+             f"differ in < {MAX_SURF_BIT_FRACTION}", same and frac < MAX_SURF_BIT_FRACTION)
+    g720 = preprocess_image(pairs[0, 0], 1.0)
+    g_img = preprocess_image(imgs[0], IMG_SCALE)
+    img_surf = ExtractorConfig(n_features=IMG_FEATURES, n_levels=8, family="SURF")
+    size = f"{g720.shape[1]}x{g720.shape[0]}"
+    surf_ms = {
+        f"{size}_one_image": cuda_ms(lambda: extract_hessian(g720, surf, CAPACITY), 10),
+        f"{size}_stereo_pair": cuda_ms(lambda: extract_hessian(pairs[0], surf, CAPACITY), 10),
+        f"{g_img.shape[1]}x{g_img.shape[0]}_{IMG_FEATURES}_features":
+            cuda_ms(lambda: extract_hessian(g_img, img_surf, IMG_CAPS[2]), 10),
+    }
+    log("phase 9 timing: " + json.dumps({
+        "card": card_line(),
+        "9a_slam_frame_ms_median": rec_a["slam_frame_ms"],
+        "9a_imaging_frame_ms_median": rec_a["img_frame_ms"],
+        "9a_placer_call_ms_median": rec_a["place_ms"],
+        "9a_imaging_ba_ms": rec_a["ba_ms"], "9a_sparsify_ms": rec_a["sparsify_ms"],
+        "9a_sparsify_culled": rec_a["n_culled"], "9a_peak_device_mb": rec_a["peak_mb"],
+        "9a_s": rec_a["secs"],
+        "9b_slam_frame_ms_median": rec_b["slam_frame_ms"],
+        "9b_imaging_frame_ms_median": rec_b["img_frame_ms"],
+        "9b_imaging_ba_ms": rec_b["ba_ms"], "9b_s": rec_b["secs"],
+        "9b_peak_device_mb": rec_b["peak_mb"],
+        "9c_surf_s": secs_c, "surf_extraction_ms": surf_ms,
+        "surf_worst_bit_fraction": worst_bits}))
+    if failed:
+        raise AssertionError("phase 9 failed: " + "; ".join(failed))
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2046,6 +2365,7 @@ def main() -> int:
     launches += timed("6", phase6, cam, cfg, poses, pairs, tracked, async_lines)
     launches += timed("7", phase7, cam, cfg, poses, pairs)
     launches += timed("8", phase8, cam, cfg, dev)
+    launches += timed("9", phase9, cam, cfg, poses, pairs, pts)
     log(f"seconds a phase: {json.dumps(took)}")
     log(json.dumps({"kernels": [{
         "name": "pose_opt",

@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from hyslam_tpu_torch.geometry import se3
+from hyslam_tpu_torch.geometry import se3, so3
 from hyslam_tpu_torch.ops import indexing as ix
 
 
@@ -126,7 +126,7 @@ def pose_at_time(traj: Trajectory, query_t: torch.Tensor):
     lo = torch.minimum((hi - 1).clamp_min(0), tmax.long())
     t0 = traj.t[lo]
     t1 = traj.t[hi]
-    alpha = torch.clamp((query_t - t0) / torch.clamp_min(t1 - t0, 1e-9), 0.0, 1.0)
+    alpha = so3.clip((query_t - t0) / torch.clamp_min(t1 - t0, 1e-9), 0.0, 1.0)
     T = se3.interpolate(traj.Tcw[lo], traj.Tcw[hi], alpha)
     ok = (traj.size > 0) & (query_t >= traj.t[0] - 0.5) & (
         query_t <= ix.take(traj.t, tmax) + 0.5)

@@ -53,6 +53,18 @@
 // - The final pass writes the inlier mask, its count and the per-observation
 //   chi2, so the caller needs no second evaluation.
 //
+// - Problems of more than 1024 observations (N <= 4096: a monocular camera
+//   at 3000 features, whose frames have one row a feature slot). The
+//   kernel is a template on the number of 1024-row chunks, C = ceil(N /
+//   1024). Chunk 0 stays in registers as above, so C = 1 compiles to the
+//   kernel of N <= 1024 unchanged; chunks 1..C-1 sit in dynamic shared
+//   memory as structure-of-arrays (7 floats and a flag byte a row, 29 KB a
+//   chunk, 87 KB at N = 4096, past the default 48 KB by
+//   cudaFuncSetAttribute), slot (c - 1) * 1024 + i * 256 + thread, so that
+//   a warp reads 32 consecutive words. A thread walks its rows chunk by
+//   chunk in a fixed order, so every sum still has one order. Registers
+//   for all 16 rows a thread (16 x 11 values) would spill.
+//
 // Not used: a thread block cluster over one problem (a cluster barrier costs
 // more than __syncthreads(), and a pass is already 4 observations a thread),
 // tensor cores and TMA (36 KB of scalar geometry gives them nothing to do).
@@ -77,8 +89,13 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxObs = 1024;
-constexpr int kObs = 4;                    // observations a thread
+constexpr int kObs = 4;                    // observations a thread a chunk
+constexpr int kChunkRows = kThreads * kObs;  // rows of one chunk: 1024
+constexpr int kMaxChunks = 4;
+constexpr int kMaxObs = kMaxChunks * kChunkRows;  // 4096
+// a row in shared memory: X0 X1 X2 u v ur is2 as floats, one flag byte
+constexpr int kSmemRowBytes = 7 * 4 + 1;
+constexpr unsigned char kValid = 1, kStereo = 2, kActive = 4;
 constexpr int kSums = 28;                  // 21 H (upper triangle) + 6 g + cost
 constexpr int kCost = 27;
 constexpr unsigned kAllLanes = 0xffffffffu;
@@ -88,7 +105,7 @@ constexpr float kChi2Stereo = 7.815f;
 // zero, bit i for column i: their products are left out of H and g
 constexpr unsigned kNzU = 0x2f, kNzV = 0x37, kNzR = 0x2f;
 
-static_assert(kThreads * kObs == kMaxObs, "a block holds one whole problem");
+static_assert(kChunkRows == 1024, "chunk 0 is the register-resident problem of N <= 1024");
 
 struct Cam {
   float fx, fy, cx, cy, bf;
@@ -128,8 +145,9 @@ __device__ __forceinline__ float huber(float c2, float th, bool use_huber) {
   return use_huber && c2 > th ? h : 1.0f;
 }
 
-// One pass: this thread's part of the 28 sums at pose (R, t), into
-// acc[0..27]; acc[28..31] stay zero for the reduction. Straight-line code:
+// One pass over kObs rows: their part of the 28 sums at pose (R, t), added
+// to acc[0..27] (the caller zeroes acc first; acc[28..31] stay zero for
+// the reduction). Straight-line code:
 // an inactive observation is weighted 0, not branched around, so that the
 // compiler can interleave a thread's observations. So, as in the plain
 // version, a row that is not valid must still hold finite numbers: 0 * NaN
@@ -137,8 +155,6 @@ __device__ __forceinline__ float huber(float c2, float th, bool use_huber) {
 __device__ __forceinline__ void accumulate(const Cam& cam, const float (&R)[9],
                                            const float (&t)[3], const Obs (&obs)[kObs],
                                            bool use_huber, float (&acc)[32]) {
-#pragma unroll
-  for (int k = 0; k < 32; ++k) acc[k] = 0.0f;
 #pragma unroll
   for (int n = 0; n < kObs; ++n) {
     const Obs& o = obs[n];
@@ -218,6 +234,160 @@ __device__ __forceinline__ float block_totals(float (&acc)[32], float (*s_red)[k
   for (int w = 0; w < kWarps; ++w) total += s_red[buf][w][lane];
   buf ^= 1;
   return total;
+}
+
+// Loads rows n0 .. n0 + kObs - 1 of problem `row` (the offset b * N). With
+// vec4 (N % 4 == 0, pointers aligned) the kObs rows are all inside N or all
+// outside, and load as 16-byte words. Rows past N hold a valid point at
+// depth 1 and take part in nothing.
+__device__ __forceinline__ void load_obs(const float* __restrict__ X,
+                                         const float* __restrict__ uv,
+                                         const float* __restrict__ ur,
+                                         const float* __restrict__ is2,
+                                         const unsigned char* __restrict__ valid,
+                                         const unsigned char* __restrict__ stereo,
+                                         size_t row, int n0, int N, bool vec4,
+                                         Obs (&obs)[kObs]) {
+  if (vec4 && n0 < N) {
+    const float4* Xv = reinterpret_cast<const float4*>(X + 3 * (row + n0));
+    const float4* uvv = reinterpret_cast<const float4*>(uv + 2 * (row + n0));
+    const float4 x0 = Xv[0], x1 = Xv[1], x2 = Xv[2];
+    const float4 u0 = uvv[0], u1 = uvv[1];
+    const float4 r4 = *reinterpret_cast<const float4*>(ur + row + n0);
+    const float4 s4 = *reinterpret_cast<const float4*>(is2 + row + n0);
+    const uchar4 v4 = *reinterpret_cast<const uchar4*>(valid + row + n0);
+    const uchar4 t4 = *reinterpret_cast<const uchar4*>(stereo + row + n0);
+    const float xs[12] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w,
+                          x2.x, x2.y, x2.z, x2.w};
+    const float us[8] = {u0.x, u0.y, u0.z, u0.w, u1.x, u1.y, u1.z, u1.w};
+    const float rs[4] = {r4.x, r4.y, r4.z, r4.w};
+    const float ss[4] = {s4.x, s4.y, s4.z, s4.w};
+    const unsigned char vs[4] = {v4.x, v4.y, v4.z, v4.w};
+    const unsigned char ts[4] = {t4.x, t4.y, t4.z, t4.w};
+#pragma unroll
+    for (int i = 0; i < kObs; ++i) {
+      obs[i].X0 = xs[3 * i + 0];
+      obs[i].X1 = xs[3 * i + 1];
+      obs[i].X2 = xs[3 * i + 2];
+      obs[i].u = us[2 * i + 0];
+      obs[i].v = us[2 * i + 1];
+      obs[i].ur = rs[i];
+      obs[i].is2 = ss[i];
+      obs[i].valid = vs[i] != 0;
+      obs[i].st = ts[i] != 0;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kObs; ++i) {
+      const int n = n0 + i;
+      const bool in = n < N;
+      const size_t o = row + (in ? n : 0);
+      obs[i].X0 = in ? X[3 * o + 0] : 0.0f;
+      obs[i].X1 = in ? X[3 * o + 1] : 0.0f;
+      obs[i].X2 = in ? X[3 * o + 2] : 1.0f;
+      obs[i].u = in ? uv[2 * o + 0] : 0.0f;
+      obs[i].v = in ? uv[2 * o + 1] : 0.0f;
+      obs[i].ur = in ? ur[o] : 0.0f;
+      obs[i].is2 = in ? is2[o] : 0.0f;
+      obs[i].valid = in && valid[o] != 0;
+      obs[i].st = in && stereo[o] != 0;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kObs; ++i) {
+    obs[i].th = obs[i].st ? kChi2Stereo : kChi2Mono;
+    obs[i].active = obs[i].valid;
+  }
+}
+
+// The rows of chunks 1..C-1 in dynamic shared memory, structure of arrays:
+// row i of this thread in chunk c (c >= 1) sits at slot
+// (c - 1) * kChunkRows + i * kThreads + threadIdx.x.
+struct SmemRows {
+  float *X0, *X1, *X2, *u, *v, *ur, *is2;
+  unsigned char* flags;
+};
+
+__device__ __forceinline__ SmemRows smem_rows(unsigned char* base, int n_rows) {
+  float* f = reinterpret_cast<float*>(base);
+  return SmemRows{f,          f + n_rows,     f + 2 * n_rows, f + 3 * n_rows,
+                  f + 4 * n_rows, f + 5 * n_rows, f + 6 * n_rows,
+                  base + 7 * sizeof(float) * n_rows};
+}
+
+__device__ __forceinline__ void store_rows(const SmemRows& s, int c, int tid,
+                                           const Obs (&obs)[kObs]) {
+#pragma unroll
+  for (int i = 0; i < kObs; ++i) {
+    const int k = (c - 1) * kChunkRows + i * kThreads + tid;
+    s.X0[k] = obs[i].X0;
+    s.X1[k] = obs[i].X1;
+    s.X2[k] = obs[i].X2;
+    s.u[k] = obs[i].u;
+    s.v[k] = obs[i].v;
+    s.ur[k] = obs[i].ur;
+    s.is2[k] = obs[i].is2;
+    s.flags[k] = (obs[i].valid ? kValid : 0) | (obs[i].st ? kStereo : 0) |
+                 (obs[i].active ? kActive : 0);
+  }
+}
+
+__device__ __forceinline__ void read_rows(const SmemRows& s, int c, int tid,
+                                          Obs (&obs)[kObs]) {
+#pragma unroll
+  for (int i = 0; i < kObs; ++i) {
+    const int k = (c - 1) * kChunkRows + i * kThreads + tid;
+    const unsigned char f = s.flags[k];
+    obs[i].X0 = s.X0[k];
+    obs[i].X1 = s.X1[k];
+    obs[i].X2 = s.X2[k];
+    obs[i].u = s.u[k];
+    obs[i].v = s.v[k];
+    obs[i].ur = s.ur[k];
+    obs[i].is2 = s.is2[k];
+    obs[i].valid = (f & kValid) != 0;
+    obs[i].st = (f & kStereo) != 0;
+    obs[i].active = (f & kActive) != 0;
+    obs[i].th = obs[i].st ? kChi2Stereo : kChi2Mono;
+  }
+}
+
+// The final pass over kObs rows: chi2 and the inlier flags at (R, t),
+// written to rows n0 .. n0 + kObs - 1 (16-byte words with vec4, as
+// load_obs reads them). Returns the rows' inlier count.
+__device__ __forceinline__ int write_final(const Cam& cam, const float (&R)[9],
+                                           const float (&t)[3], const Obs (&obs)[kObs],
+                                           size_t row, int n0, int N, bool vec4,
+                                           unsigned char* __restrict__ inl,
+                                           float* __restrict__ chi2) {
+  float c2s[kObs];
+  unsigned char ins[kObs];
+  int cnt = 0;
+#pragma unroll
+  for (int i = 0; i < kObs; ++i) {
+    const Terms r = residual_terms(cam, R, t, obs[i]);
+    const bool is_in = obs[i].valid && (r.c2 <= obs[i].th);
+    c2s[i] = r.c2;
+    ins[i] = is_in ? 1 : 0;
+    cnt += is_in ? 1 : 0;
+  }
+  if (vec4) {
+    if (n0 < N) {
+      *reinterpret_cast<float4*>(chi2 + row + n0) =
+          make_float4(c2s[0], c2s[1], c2s[2], c2s[3]);
+      *reinterpret_cast<uchar4*>(inl + row + n0) =
+          make_uchar4(ins[0], ins[1], ins[2], ins[3]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kObs; ++i) {
+      if (n0 + i < N) {
+        chi2[row + n0 + i] = c2s[i];
+        inl[row + n0 + i] = ins[i];
+      }
+    }
+  }
+  return cnt;
 }
 
 __device__ __forceinline__ float next_lambda(float lam, bool accept) {
@@ -362,6 +532,9 @@ __device__ __forceinline__ bool lm_step(const float (&sys)[kSums], float lam,
   return finite;
 }
 
+// kChunks = ceil(N / 1024): chunk 0 in registers, the others in dynamic
+// shared memory ((kChunks - 1) * kChunkRows * kSmemRowBytes bytes).
+template <int kChunks>
 __global__ void __launch_bounds__(kThreads)
 pose_opt_kernel(const float* __restrict__ T0, const float* __restrict__ X,
                 const float* __restrict__ uv, const float* __restrict__ ur,
@@ -372,68 +545,26 @@ pose_opt_kernel(const float* __restrict__ T0, const float* __restrict__ X,
                 float* __restrict__ chi2) {
   __shared__ float s_red[2][kWarps][32];
   __shared__ int s_count[kWarps];
+  extern __shared__ __align__(16) unsigned char s_rows[];
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int n0 = tid * kObs;               // this thread's first observation
+  const int n0 = tid * kObs;               // this thread's first row of a chunk
   const size_t row = (size_t)b * N;
-  // with vec set (N % 4 == 0, pointers aligned) a thread's 4 observations
-  // are all inside N or all outside, and load as 16-byte words
   const bool vec4 = vec != 0;
+  const SmemRows smem = smem_rows(s_rows, (kChunks - 1) * kChunkRows);
 
-  Obs obs[kObs];
-  if (vec4 && n0 < N) {
-    const float4* Xv = reinterpret_cast<const float4*>(X + 3 * (row + n0));
-    const float4* uvv = reinterpret_cast<const float4*>(uv + 2 * (row + n0));
-    const float4 x0 = Xv[0], x1 = Xv[1], x2 = Xv[2];
-    const float4 u0 = uvv[0], u1 = uvv[1];
-    const float4 r4 = *reinterpret_cast<const float4*>(ur + row + n0);
-    const float4 s4 = *reinterpret_cast<const float4*>(is2 + row + n0);
-    const uchar4 v4 = *reinterpret_cast<const uchar4*>(valid + row + n0);
-    const uchar4 t4 = *reinterpret_cast<const uchar4*>(stereo + row + n0);
-    const float xs[12] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w,
-                          x2.x, x2.y, x2.z, x2.w};
-    const float us[8] = {u0.x, u0.y, u0.z, u0.w, u1.x, u1.y, u1.z, u1.w};
-    const float rs[4] = {r4.x, r4.y, r4.z, r4.w};
-    const float ss[4] = {s4.x, s4.y, s4.z, s4.w};
-    const unsigned char vs[4] = {v4.x, v4.y, v4.z, v4.w};
-    const unsigned char ts[4] = {t4.x, t4.y, t4.z, t4.w};
-#pragma unroll
-    for (int i = 0; i < kObs; ++i) {
-      obs[i].X0 = xs[3 * i + 0];
-      obs[i].X1 = xs[3 * i + 1];
-      obs[i].X2 = xs[3 * i + 2];
-      obs[i].u = us[2 * i + 0];
-      obs[i].v = us[2 * i + 1];
-      obs[i].ur = rs[i];
-      obs[i].is2 = ss[i];
-      obs[i].valid = vs[i] != 0;
-      obs[i].st = ts[i] != 0;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < kObs; ++i) {
-      const int n = n0 + i;
-      const bool in = n < N;
-      const size_t o = row + (in ? n : 0);
-      obs[i].X0 = in ? X[3 * o + 0] : 0.0f;
-      obs[i].X1 = in ? X[3 * o + 1] : 0.0f;
-      obs[i].X2 = in ? X[3 * o + 2] : 1.0f;
-      obs[i].u = in ? uv[2 * o + 0] : 0.0f;
-      obs[i].v = in ? uv[2 * o + 1] : 0.0f;
-      obs[i].ur = in ? ur[o] : 0.0f;
-      obs[i].is2 = in ? is2[o] : 0.0f;
-      obs[i].valid = in && valid[o] != 0;
-      obs[i].st = in && stereo[o] != 0;
-    }
+  Obs obs[kObs];                           // chunk 0
+  load_obs(X, uv, ur, is2, valid, stereo, row, n0, N, vec4, obs);
+#pragma unroll 1
+  for (int c = 1; c < kChunks; ++c) {
+    Obs more[kObs];
+    load_obs(X, uv, ur, is2, valid, stereo, row, c * kChunkRows + n0, N, vec4, more);
+    store_rows(smem, c, tid, more);
   }
-#pragma unroll
-  for (int i = 0; i < kObs; ++i) {
-    obs[i].th = obs[i].st ? kChi2Stereo : kChi2Mono;
-    obs[i].active = obs[i].valid;
-  }
+  // every thread reads back only its own slots: no barrier needed here
 
   // Every thread carries the pose and the LM state (system, lambda).
   float R[9], t[3];
@@ -463,8 +594,16 @@ pose_opt_kernel(const float* __restrict__ T0, const float* __restrict__ X,
       } else {
         finite = lm_step(sys, lam, R, t, cR, ct);
       }
-      // the one pass: H, g and cost at the candidate
+      // the one pass: H, g and cost at the candidate, chunk by chunk
+#pragma unroll
+      for (int k = 0; k < 32; ++k) acc[k] = 0.0f;
       accumulate(cam, cR, ct, obs, use_huber, acc);
+#pragma unroll 1
+      for (int c = 1; c < kChunks; ++c) {
+        Obs more[kObs];
+        read_rows(smem, c, tid, more);
+        accumulate(cam, cR, ct, more, use_huber, acc);
+      }
       const float mine = block_totals(acc, s_red, buf, lane, warp);
       const float cost2 = __shfl_sync(kAllLanes, mine, kCost);
       const bool accept = opening || ((cost2 < sys[kCost]) && finite);
@@ -484,35 +623,27 @@ pose_opt_kernel(const float* __restrict__ T0, const float* __restrict__ X,
       const Terms r = residual_terms(cam, R, t, obs[i]);
       obs[i].active = obs[i].valid && (r.c2 <= obs[i].th);
     }
+#pragma unroll 1
+    for (int c = 1; c < kChunks; ++c) {
+      Obs more[kObs];
+      read_rows(smem, c, tid, more);
+#pragma unroll
+      for (int i = 0; i < kObs; ++i) {
+        const Terms r = residual_terms(cam, R, t, more[i]);
+        const bool act = more[i].valid && (r.c2 <= more[i].th);
+        const int k = (c - 1) * kChunkRows + i * kThreads + tid;
+        smem.flags[k] = (smem.flags[k] & ~kActive) | (act ? kActive : 0);
+      }
+    }
   }
 
   // final pass: chi2, inlier mask and count at the result
-  float c2s[kObs];
-  unsigned char ins[kObs];
-  int cnt = 0;
-#pragma unroll
-  for (int i = 0; i < kObs; ++i) {
-    const Terms r = residual_terms(cam, R, t, obs[i]);
-    const bool is_in = obs[i].valid && (r.c2 <= obs[i].th);
-    c2s[i] = r.c2;
-    ins[i] = is_in ? 1 : 0;
-    cnt += is_in ? 1 : 0;
-  }
-  if (vec4) {
-    if (n0 < N) {
-      *reinterpret_cast<float4*>(chi2 + row + n0) =
-          make_float4(c2s[0], c2s[1], c2s[2], c2s[3]);
-      *reinterpret_cast<uchar4*>(inl + row + n0) =
-          make_uchar4(ins[0], ins[1], ins[2], ins[3]);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < kObs; ++i) {
-      if (n0 + i < N) {
-        chi2[row + n0 + i] = c2s[i];
-        inl[row + n0 + i] = ins[i];
-      }
-    }
+  int cnt = write_final(cam, R, t, obs, row, n0, N, vec4, inl, chi2);
+#pragma unroll 1
+  for (int c = 1; c < kChunks; ++c) {
+    Obs more[kObs];
+    read_rows(smem, c, tid, more);
+    cnt += write_final(cam, R, t, more, row, c * kChunkRows + n0, N, vec4, inl, chi2);
   }
   cnt = __reduce_add_sync(kAllLanes, cnt);
   if (lane == 0) s_count[warp] = cnt;
@@ -539,6 +670,25 @@ bool aligned(const void* p, uintptr_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
+template <int kChunks>
+int launch(dim3 grid, cudaStream_t stream, const float* T0, const float* X,
+           const float* uv, const float* ur, const float* is2,
+           const unsigned char* valid, const unsigned char* stereo, int N, int vec,
+           Cam cam, int n_rounds, int iters, float* Tout, unsigned char* inl,
+           int* ninl, float* chi2) {
+  const int smem = (kChunks - 1) * kChunkRows * kSmemRowBytes;
+  if (kChunks > 1) {
+    // past the default 48 KB a block must opt in (per device: set every call)
+    const cudaError_t e = cudaFuncSetAttribute(
+        pose_opt_kernel<kChunks>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  pose_opt_kernel<kChunks><<<grid, kThreads, smem, stream>>>(
+      T0, X, uv, ur, is2, valid, stereo, N, vec, cam, n_rounds, iters, Tout, inl, ninl,
+      chi2);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int hyslam_pose_opt(const float* T0, const float* X, const float* uv,
@@ -554,10 +704,22 @@ extern "C" int hyslam_pose_opt(const float* T0, const float* X, const float* uv,
   const int vec = N % 4 == 0 && aligned(X, 16) && aligned(uv, 16) && aligned(ur, 16) &&
                   aligned(is2, 16) && aligned(chi2, 16) && aligned(valid, 4) &&
                   aligned(stereo, 4) && aligned(inl, 4);
-  pose_opt_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
-      T0, X, uv, ur, is2, valid, stereo, N, vec, cam, n_rounds, iters, Tout, inl, ninl,
-      chi2);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid(B);
+  switch ((N + kChunkRows - 1) / kChunkRows) {
+    case 1:
+      return launch<1>(grid, s, T0, X, uv, ur, is2, valid, stereo, N, vec, cam, n_rounds,
+                       iters, Tout, inl, ninl, chi2);
+    case 2:
+      return launch<2>(grid, s, T0, X, uv, ur, is2, valid, stereo, N, vec, cam, n_rounds,
+                       iters, Tout, inl, ninl, chi2);
+    case 3:
+      return launch<3>(grid, s, T0, X, uv, ur, is2, valid, stereo, N, vec, cam, n_rounds,
+                       iters, Tout, inl, ninl, chi2);
+    default:
+      return launch<4>(grid, s, T0, X, uv, ur, is2, valid, stereo, N, vec, cam, n_rounds,
+                       iters, Tout, inl, ninl, chi2);
+  }
 }
 
 extern "C" const char* hyslam_error_string(int code) {

@@ -19,7 +19,7 @@ class ExtractorConfig(NamedTuple):
     fast_threshold: float = 7.0   # min threshold; strong corners rank higher
     cell_size: int = 32
     border: int = 19              # EDGE_THRESHOLD in the reference
-    family: str = "ORB"           # only ORB is ported
+    family: str = "ORB"           # "ORB" or "SURF" (features/factory.py)
 
 
 def level_budgets(cfg: ExtractorConfig) -> list[int]:

@@ -60,6 +60,12 @@ def project(cam: Camera, pts_cam: torch.Tensor):
     return torch.stack([u, v], dim=-1), z
 
 
+def in_image(cam: Camera, uv: torch.Tensor, margin: float = 0.0) -> torch.Tensor:
+    """Bounds mask [...] for pixel coords [..., 2]."""
+    return ((uv[..., 0] >= margin) & (uv[..., 0] < cam.width - margin)
+            & (uv[..., 1] >= margin) & (uv[..., 1] < cam.height - margin))
+
+
 def backproject(cam: Camera, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
     """Pixel coords [..., 2] + depth [...] -> camera-frame points [..., 3]."""
     x = (uv[..., 0] - cam.cx) / cam.fx * depth

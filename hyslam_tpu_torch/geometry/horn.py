@@ -13,12 +13,23 @@ import torch
 from hyslam_tpu_torch.geometry import se3, sim3, so3
 
 
+DEGENERATE_RTOL = 1e-3
+
+
 def horn_sim3(x: torch.Tensor, y: torch.Tensor, weights: torch.Tensor | None = None,
-              fix_scale: bool = False) -> torch.Tensor:
+              fix_scale: bool = False, q_prior: torch.Tensor | None = None) -> torch.Tensor:
     """Weighted Horn alignment mapping x -> y.
 
     x, y: [..., N, 3] correspondences. weights: [..., N] (>= 0) or None.
-    Returns packed Sim3 [..., 8]; with fix_scale=True, s = 1."""
+    Returns packed Sim3 [..., 8]; with fix_scale=True, s = 1.
+
+    Where the points are collinear the rotation about their line is not
+    fixed by them: the top eigenvalue of Horn's N matrix is double and the
+    eigenvector an arbitrary one of its plane (the JAX package takes what
+    its ``eigh`` returns). With ``q_prior`` [..., 4] (w, x, y, z), a top
+    eigenvalue within DEGENERATE_RTOL of the next, relative, gives the unit
+    vector of that plane nearest q_prior instead; otherwise nothing
+    changes."""
     if weights is None:
         weights = torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)
     wsum = torch.sum(weights, dim=-1, keepdim=True)
@@ -46,8 +57,15 @@ def horn_sim3(x: torch.Tensor, y: torch.Tensor, weights: torch.Tensor | None = N
         ],
         dim=-2,
     )
-    _, vecs = torch.linalg.eigh(N)
+    vals, vecs = torch.linalg.eigh(N)
     q = vecs[..., :, -1]
+    if q_prior is not None:
+        plane = vecs[..., :, -2:]
+        proj = (plane @ (plane.transpose(-1, -2) @ q_prior[..., None]))[..., 0]
+        norm = torch.linalg.norm(proj, dim=-1, keepdim=True)
+        degenerate = ((vals[..., -1:] - vals[..., -2:-1])
+                      <= DEGENERATE_RTOL * vals[..., -1:].abs()) & (norm > 1e-6)
+        q = torch.where(degenerate, proj / torch.clamp_min(norm, 1e-6), q)
     q = q * torch.where(q[..., :1] < 0, -1.0, 1.0)
     R = so3.mat_from_quat(q)
 

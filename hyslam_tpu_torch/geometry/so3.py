@@ -9,6 +9,18 @@ import torch
 _EPS = 1e-8
 
 
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: the same values as ``torch.clamp``, and under autograd
+    the same gradient at a bound, half the incoming one (``jnp.clip`` is a
+    maximum and a minimum, whose ties split the gradient; ``torch.clamp``
+    passes all of it)."""
+    if not x.requires_grad:
+        return torch.clamp(x, lo, hi)
+    lo_t = torch.full((), lo, dtype=x.dtype, device=x.device)
+    hi_t = torch.full((), hi, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo_t), hi_t)
+
+
 def hat(w: torch.Tensor) -> torch.Tensor:
     """Skew-symmetric matrix [..., 3] -> [..., 3, 3] with hat(w) @ v = w x v."""
     wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
@@ -110,7 +122,7 @@ def mat_from_quat(q: torch.Tensor) -> torch.Tensor:
 
 def quat_log(q: torch.Tensor) -> torch.Tensor:
     """Unit quaternion -> axis-angle [..., 3] (|v| in [0, pi])."""
-    w = torch.clamp(q[..., 0], -1.0, 1.0)
+    w = clip(q[..., 0], -1.0, 1.0)
     v = q[..., 1:]
     vn = torch.linalg.norm(v, dim=-1)
     theta = 2.0 * torch.atan2(vn, w)

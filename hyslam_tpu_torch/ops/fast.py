@@ -1,12 +1,15 @@
-"""FAST-9/16 corner scores and 3x3 non-max suppression (counterpart of
-``hyslam_tpu/ops/fast.py``; the test-only ``select_keypoints`` is not
-ported — the atlas extractor selects per level)."""
+"""FAST-9/16 corner scores, 3x3 non-max suppression and grid-distributed
+keypoint selection (counterpart of ``hyslam_tpu/ops/fast.py``; the atlas
+extractor selects per level itself, the SURF family through
+``select_keypoints``)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from hyslam_tpu_torch.ops import indexing as ix
 
 # Bresenham circle radius 3 (dy, dx), standard FAST-16 order (clockwise),
 # copied from hyslam_tpu/ops/fast.py.
@@ -68,3 +71,43 @@ def nms3x3(score: torch.Tensor) -> torch.Tensor:
     s = score.reshape((-1, 1) + tuple(score.shape[-2:]))
     m = F.max_pool2d(s, kernel_size=3, stride=1, padding=1).reshape(score.shape)
     return torch.where(score >= m, score, 0.0)
+
+
+def select_keypoints(score: torch.Tensor, n_keypoints: int, cell: int = 32,
+                     border: int = 16):
+    """Grid-distributed top-N selection from a score map [..., H, W]: a
+    per-cell quota by top k inside each ``cell`` x ``cell`` tile, then the
+    top N of the pooled candidates; ties go to the lower index, as
+    ``lax.top_k``. Returns (uv [..., N, 2] f32 (x, y), kp_score [..., N],
+    valid [..., N])."""
+    h, w = score.shape[-2:]
+    lead = tuple(score.shape[:-2])
+    dev = score.device
+    yy = torch.arange(h, device=dev)[:, None]
+    xx = torch.arange(w, device=dev)[None, :]
+    ok = (yy >= border) & (yy < h - border) & (xx >= border) & (xx < w - border)
+    s = torch.where(ok, score, 0.0)
+
+    ncy = (h + cell - 1) // cell
+    ncx = (w + cell - 1) // cell
+    sp = F.pad(s, (0, ncx * cell - w, 0, ncy * cell - h))
+    tiles = sp.reshape(lead + (ncy, cell, ncx, cell)).transpose(-3, -2).reshape(
+        lead + (ncy * ncx, cell * cell))
+    quota = max(1, min(cell * cell, -(-n_keypoints // (ncy * ncx)) + 2))
+    top_s, top_i = ix.top_k(tiles, quota)                       # [..., C, q]
+    cidx = torch.arange(ncy * ncx, device=dev)
+    py = ((cidx // ncx) * cell)[:, None] + top_i // cell
+    px = ((cidx % ncx) * cell)[:, None] + top_i % cell
+
+    pool_s = top_s.flatten(-2)
+    n_take = min(n_keypoints, pool_s.shape[-1])
+    best_s, best_i = ix.top_k(pool_s, n_take)
+    uv = torch.stack([torch.gather(px.flatten(-2), -1, best_i).to(torch.float32),
+                      torch.gather(py.flatten(-2), -1, best_i).to(torch.float32)], dim=-1)
+    valid = best_s > 0
+    if n_take < n_keypoints:
+        pad = n_keypoints - n_take
+        uv = F.pad(uv, (0, 0, 0, pad))
+        best_s = F.pad(best_s, (0, pad))
+        valid = F.pad(valid, (0, pad))
+    return uv, best_s, valid

@@ -16,7 +16,7 @@ import torch
 from hyslam_tpu_torch import kernels
 from hyslam_tpu_torch.geometry.camera import Camera
 
-MAX_OBS = 1024   # observations per problem: kMaxObs in csrc/pose_opt.cu
+MAX_OBS = 4096   # observations per problem: kMaxObs in csrc/pose_opt.cu
 
 
 def _check(name: str, x: torch.Tensor, shape: tuple, dtype: torch.dtype) -> None:
@@ -43,7 +43,8 @@ def pose_optimization_cuda(
     iters_per_round: int = 10,
 ):
     """Run B independent pose problems, one thread block each, in one
-    kernel launch and no other device work. The inputs are contiguous CUDA
+    kernel launch and no other device work, for any N <= 4096 (up to 1024
+    observations in registers, the rest in shared memory). The inputs are contiguous CUDA
     tensors on one device, float32 but for the two bool masks. Rows that
     are not valid take part in no sum but must hold finite values, as for
     the plain version (the kernel weights them 0 and does not branch around

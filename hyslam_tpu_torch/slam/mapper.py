@@ -289,11 +289,14 @@ def fuse_landmarks(ms: MapState, kf_id: int, cam: Camera, params: MapperParams,
 # ---------------------------------------------------------------------------
 
 def _gather_local_ba(ms: MapState, kf_id: int, cam: Camera, max_local_kf: int = 32,
-                     max_lm: int = 4096, n_levels: int = 8, scale_factor: float = 1.2):
+                     max_lm: int = 4096, n_levels: int = 8, scale_factor: float = 1.2,
+                     cam_table: CamArrays | None = None):
     """Assemble a BAProblem for the covisibility neighbourhood of kf_id:
     local keyframes (1-hop covisible + self, self first), their landmarks,
-    and their other observers as fixed keyframes. Returns (problem,
-    kf_of_slot, slot_used, slot_movable, lm_rows, lm_ok)."""
+    and their other observers as fixed keyframes. Every slot takes ``cam``'s
+    intrinsics, or with ``cam_table`` ([n_cams] CamArrays) those of its
+    keyframe's ``cam_id`` (keyframes of two cameras in one problem). Returns
+    (problem, kf_of_slot, slot_used, slot_movable, lm_rows, lm_ok)."""
     K, L, F = ms.K, ms.L, ms.F
     dev = ms.covis.device
     true = torch.ones((), dtype=torch.bool, device=dev)
@@ -346,14 +349,16 @@ def _gather_local_ba(ms: MapState, kf_id: int, cam: Camera, max_local_kf: int = 
     ur = ms.kf.ur[obs_kfc, obs_feat]
     inv_s2 = feature_inv_sigma2(ms.kf.level[obs_kfc, obs_feat], n_levels, scale_factor)
 
-    def per_slot(v):
-        return torch.full((KL,), v, dtype=torch.float32, device=dev)
-
+    if cam_table is None:
+        cams = CamArrays(*(torch.full((KL,), getattr(cam, f), dtype=torch.float32,
+                                      device=dev) for f in CamArrays._fields))
+    else:
+        cid = ms.kf.cam_id[kf_of_slot.long()].clamp(0, cam_table.fx.shape[0] - 1).long()
+        cams = CamArrays(*(getattr(cam_table, f)[cid] for f in CamArrays._fields))
     prob = BAProblem(
         kf_Tcw=ms.kf.Tcw[kf_of_slot.long()],
         kf_fixed=slot_fixed | ~slot_used,
-        cams=CamArrays(fx=per_slot(cam.fx), fy=per_slot(cam.fy), cx=per_slot(cam.cx),
-                       cy=per_slot(cam.cy), bf=per_slot(cam.bf)),
+        cams=cams,
         lm_pos=ms.lm.pos[lm_rows],
         lm_valid=lm_ok,
         obs=BAObservations(
@@ -403,12 +408,13 @@ def _slot_priors(ms: MapState, sensors, opt_info, kf_of_slot, slot_used):
 
 def _local_ba_body(ms: MapState, kf_id: int, cam: Camera, max_local_kf: int,
                    max_lm: int, n_levels: int, scale_factor: float,
-                   use_priors: bool = False, sensors=None, opt_info=None):
+                   use_priors: bool = False, sensors=None, opt_info=None,
+                   cam_table: CamArrays | None = None):
     """The whole local-BA job: gather the covisibility neighbourhood,
     two-phase robust BA, scatter, outlier erasure and stats. Returns (ms,
     cost)."""
     prob, kf_of_slot, slot_used, slot_movable, lm_rows, lm_ok = _gather_local_ba(
-        ms, kf_id, cam, max_local_kf, max_lm, n_levels, scale_factor)
+        ms, kf_id, cam, max_local_kf, max_lm, n_levels, scale_factor, cam_table)
     if use_priors:
         prob = prob._replace(
             priors=_slot_priors(ms, sensors, opt_info, kf_of_slot, slot_used))
@@ -423,22 +429,27 @@ def _local_ba_body(ms: MapState, kf_id: int, cam: Camera, max_local_kf: int,
 
 
 def _local_ba_noprior(ms: MapState, kf_id: int, cam: Camera, max_local_kf: int,
-                      max_lm: int, n_levels: int, scale_factor: float):
+                      max_lm: int, n_levels: int, scale_factor: float,
+                      cam_table: CamArrays | None = None):
     """Local BA without pose priors, the common case of no sensor reading
     and no registered sub-map: nothing is read back to the host."""
-    return _local_ba_body(ms, kf_id, cam, max_local_kf, max_lm, n_levels, scale_factor)
+    return _local_ba_body(ms, kf_id, cam, max_local_kf, max_lm, n_levels, scale_factor,
+                          cam_table=cam_table)
 
 
 def local_bundle_adjustment(ms: MapState, kf_id: int, cam: Camera,
                             max_local_kf: int = 32, max_lm: int = 4096,
                             sensors=None, opt_info=None, n_levels: int = 8,
-                            scale_factor: float = 1.2):
+                            scale_factor: float = 1.2,
+                            cam_table: CamArrays | None = None):
     """LocalBundleAdjustment::Run: two-phase robust BA over the covisibility
     neighbourhood; outlier observations are erased from the map afterwards.
     The sensor and sub-map tiepoint pose priors of ``sensors`` / ``opt_info``
-    join the problem where any is active (host work and one fetch a call)."""
+    join the problem where any is active (host work and one fetch a call).
+    ``cam_table`` ([n_cams] CamArrays) projects each keyframe's observations
+    through the intrinsics of its ``cam_id``."""
     return _local_ba_body(ms, kf_id, cam, max_local_kf, max_lm, n_levels,
-                          scale_factor, True, sensors, opt_info)
+                          scale_factor, True, sensors, opt_info, cam_table)
 
 
 # ---------------------------------------------------------------------------
@@ -541,7 +552,8 @@ class Mapper:
 
     def integrate_keyframe(self, ms: MapState, kf_id: int, sensors=None,
                            opt_info=None, fetch_stats: bool = True,
-                           has_priors: bool | None = None):
+                           has_priors: bool | None = None,
+                           cam_table: CamArrays | None = None):
         """Run the jobs for keyframe kf_id. Returns (ms, stats): the job
         counters read back in one transfer, and ba_cost when local BA ran.
         With fetch_stats=False nothing is read back for the counters: they
@@ -550,7 +562,8 @@ class Mapper:
         flag "a sensor reading or a registered sub-map exists" instead of
         the read of the device check; where it is true local BA takes the
         prior path (``sensors`` and the weights of ``opt_info``), counted in
-        ``self.n_prior_ba``."""
+        ``self.n_prior_ba``. ``cam_table`` goes to local BA (per-keyframe
+        intrinsics through ``cam_id``; None: this mapper's camera for all)."""
         kf_id = int(kf_id)
         stats = {}
         p = self.params
@@ -564,11 +577,11 @@ class Mapper:
                 ms, cost = local_bundle_adjustment(
                     ms, kf_id, self.cam, max_local_kf=16, max_lm=2048, sensors=sensors,
                     opt_info=opt_info, n_levels=self.n_levels,
-                    scale_factor=self.scale_factor)
+                    scale_factor=self.scale_factor, cam_table=cam_table)
                 self.n_prior_ba += 1
             else:
                 ms, cost = _local_ba_noprior(ms, kf_id, self.cam, 16, 2048,
-                                             self.n_levels, self.scale_factor)
+                                             self.n_levels, self.scale_factor, cam_table)
             if not self.is_mono:
                 ms, n_cull = cull_keyframes(ms, kf_id, self.cam, p)
                 counters = torch.cat([counters, n_cull[None]])

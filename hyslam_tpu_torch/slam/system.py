@@ -1,10 +1,11 @@
-"""System: the public API over the stereo / RGB-D / monocular pipeline
-(counterpart of ``hyslam_tpu/slam/system.py``).
+"""System: the public API over the stereo / RGB-D / monocular pipeline and
+the dual-camera rig (counterpart of ``hyslam_tpu/slam/system.py``).
 
-Builds the camera, feature family and tracker from a ``SystemConfig``, runs
-the image front end (grayscale, ORB extraction, stereo match or depth
-sampling; a monocular camera initializing takes ``init_feature_factor``
-times the features) and hands each frame to the tracker: synchronously
+Builds a camera, feature family (ORB or SURF), tracker and map for every
+camera of a ``SystemConfig``, runs the image front end (grayscale and the
+camera's ``scale``, extraction, stereo match or depth sampling; a monocular
+camera initializing takes ``init_feature_factor`` times the features) and
+hands each frame to its camera's tracker: synchronously
 (``Tracker.track``, one telemetry row returned per frame) or through the
 async tracking loop (``async_tracking=True``: ``Tracker.track_async``, rows
 committed ``commit_lag`` frames later, ``flush()`` to settle). After every
@@ -21,19 +22,30 @@ relocalization's candidates. In async mode the maintenance of every
 committed keyframe runs between frames, in keyframe order, as the sync
 path runs it: there is no worker thread and no keyframe is left without
 detection; before a verified loop is applied the frames in flight are
-committed and the loop is verified again on the map they leave. Also the
-data exporters (trajectory TSV / TUM, COLMAP, Agisoft XML, map points), map
-and checkpoint files, and the TSV telemetry logs.
+committed and the loop is verified again on the map they leave. Loop
+closing runs on the "SLAM" camera only; the count of keyframes towards the
+periodic global BA is one for all cameras, as in the JAX package.
+
+Two cameras, "SLAM" and an accessory (the reference's "Imaging" camera,
+usually monocular, with its rig transform ``Tcam``): each has its own
+tracker, map arena and ``cam_id``. After every frame the cameras' states are
+coupled: while SLAM is lost (REINITIALIZE, RELOCALIZE) the others are held
+in NULL, and when it recovers they re-initialize in a fresh sub-map. An
+Imaging frame is judged by ``place_imaging_frame`` (posed from the SLAM
+trajectory and the rig, kept where its landmark overlap with the last kept
+frame is low); ``run_imaging_bundle_adjustment`` aligns and registers every
+Imaging sub-map by the SLAM trajectory, runs the trajectory-tied BA and
+sparsifies the Imaging map (``slam/imaging.py``, ``slam/sparsify.py``).
+Also the data exporters (trajectory TSV / TUM, COLMAP, Agisoft XML, map
+points), map and checkpoint files, and the TSV telemetry logs.
 
 The system lives on ``config.device``; with none given it takes the current
 CUDA card and raises where there is none. It is single-threaded and uses one
 stream.
 
-Not ported yet, each raising NotImplementedError that names its ROADMAP
-step: the threaded pipeline
-(``pipelined=True``, step 19), more than one camera,
-``place_imaging_frame`` and ``run_imaging_bundle_adjustment`` (step 17),
-the SURF family (step 18). Every ``track_*`` entry takes
+Not ported yet, raising NotImplementedError that names its ROADMAP step:
+the threaded pipeline (``pipelined=True``, step 19). Every ``track_*``
+entry takes
 ``sensor_data`` (a ``core.sensordata.SensorData``: GPS, IMU orientation,
 pressure depth), which rides the frame to its keyframe and feeds local BA's
 pose priors under the weights of ``config.optimizer``. With
@@ -61,7 +73,9 @@ from hyslam_tpu_torch.ops.stereo import match_stereo_refined
 from hyslam_tpu_torch.features.bow import PlaceRecognizer, train_vocabulary
 from hyslam_tpu_torch.features.vocab_io import load_dbow2_text, load_vocabulary
 from hyslam_tpu_torch.slam.global_ba import run_global_ba
+from hyslam_tpu_torch.slam.imaging import ImagingFramePlacer, run_imaging_ba
 from hyslam_tpu_torch.slam.loop_closing import LoopCloser
+from hyslam_tpu_torch.slam.sparsify import sparsify_map
 from hyslam_tpu_torch.slam.tracker import State, Tracker
 from hyslam_tpu_torch.utils.telemetry import MappingLog, StageTimer, TrackingLog
 
@@ -82,14 +96,12 @@ def _unported(config: SystemConfig) -> None:
     if config.pipelined:
         raise NotImplementedError(
             "the threaded pipeline (pipelined=True) is ROADMAP step 19")
-    if len(config.cameras) != 1:
-        raise NotImplementedError(
-            "more than one camera (the Imaging camera) is ROADMAP step 17")
 
 
 class System:
-    """One SLAM system over one stereo, RGB-D or monocular camera, built from
-    a ``SystemConfig``. Feed it frames with ``track_stereo`` /
+    """One SLAM system over a stereo, RGB-D or monocular camera, or over a
+    SLAM camera and an Imaging camera, built from a ``SystemConfig``. Feed
+    it frames with ``track_stereo`` /
     ``track_rgbd`` / ``track_monocular`` (or features with
     ``track_features``), call ``flush()`` before reading
     its trackers or stopping a clock, and ``shutdown()`` at the end. With
@@ -117,6 +129,7 @@ class System:
         self._families = {}   # per-camera feature family
         self._init_families = {}   # the monocular initializer's, per camera
         self._pending_kfs = {}     # async mode: keyframes awaiting maintenance
+        self._frame_placer = None  # the Imaging camera's, built at first use
         for name, cc in self.config.cameras.items():
             self.cameras[name] = cc.camera()
             self._families[name] = make_family(cc.extractor)
@@ -245,9 +258,12 @@ class System:
             if tel is not None and tel.kf_inserted >= 0:   # a cold state's keyframe
                 self._pending_kfs[camera].append(tel.kf_inserted)
             self._maintain_pending(camera)
+            self._transition_states()
             return tel
-        return self._track_features_inline(feats, timestamp, camera, frame_id,
-                                           sensor_data)
+        tel = self._track_features_inline(feats, timestamp, camera, frame_id,
+                                          sensor_data)
+        self._transition_states()
+        return tel
 
     def _track_features_inline(self, feats, timestamp, camera, frame_id,
                                sensor_data=None):
@@ -267,6 +283,30 @@ class System:
                 self._mapping_log.log(camera, tel.kf_inserted, tel.mapper_stats)
             self._on_new_keyframe(camera, tel.kf_inserted)
         return tel
+
+    def _transition_states(self):
+        """Cross-camera state coupling: while the SLAM camera is lost
+        (REINITIALIZE, RELOCALIZE) every other camera is held in NULL (its
+        poses ride the SLAM trajectory and cannot be placed); when SLAM
+        recovers they re-enter INITIALIZE in a fresh sub-map, which imaging
+        BA aligns and registers later. In async mode a camera sent to NULL
+        first commits its frames in flight and leaves async mode, so that
+        its tracking after the re-initialization starts from the new map's
+        state (the JAX package keeps the async state from before the loss)."""
+        slam = self.trackers.get("SLAM")
+        if slam is None or len(self.trackers) < 2:
+            return
+        lost = slam.state in (State.REINITIALIZE, State.RELOCALIZE)
+        for name, t in self.trackers.items():
+            if name == "SLAM":
+                continue
+            if lost and t.state != State.NULL:
+                t.drain_pending()
+                self._maintain_pending(name)
+                t._sync_dev_to_host()
+                t.state = State.NULL
+            elif not lost and t.state == State.NULL:
+                t.reenter_initialize()
 
     def _maintain_pending(self, camera: str):
         """Async mode: the map maintenance of the keyframes committed since
@@ -379,12 +419,50 @@ class System:
 
     # ------------------------------------------------------------- dual-camera
 
+    def _placer(self, imaging_camera: str) -> ImagingFramePlacer:
+        if self._frame_placer is None:
+            self._frame_placer = ImagingFramePlacer(self.cameras[imaging_camera])
+        return self._frame_placer
+
     def place_imaging_frame(self, timestamp: float, imaging_camera: str = "Imaging"):
-        raise NotImplementedError("the Imaging camera is ROADMAP step 17")
+        """System::placeImagingFrame: whether an Imaging frame at this time is
+        worth keeping. It is posed by the SLAM trajectory and the Imaging
+        camera's rig transform ``Tcam``, and kept when its landmark overlap
+        with the last kept frame is below the threshold and enough
+        landmarks of the SLAM map are visible. Returns (keep, Tcw); before
+        any SLAM tracking there is nothing to place (False)."""
+        slam = self.trackers["SLAM"]
+        return self._placer(imaging_camera).should_keep(
+            slam.ms, slam.traj, timestamp, self.config.cameras[imaging_camera].Tcam)
+
+    def set_imaging_frame_placer_params(self, overlap_threshold: float,
+                                        min_visible: int,
+                                        imaging_camera: str = "Imaging"):
+        """System::setImagingFramePlacerParams."""
+        placer = self._placer(imaging_camera)
+        placer.overlap_threshold = overlap_threshold
+        placer.min_visible = min_visible
 
     def run_imaging_bundle_adjustment(self, imaging_camera: str = "Imaging",
-                                      sparsify_overlap: float = 0.98):
-        raise NotImplementedError("imaging bundle adjustment is ROADMAP step 17")
+                                      sparsify_overlap: float | None = 0.98):
+        """System::RunImagingBundleAdjustment: re-derive the SLAM trajectory
+        from its optimized keyframes, align and register every Imaging
+        sub-map by it, run the trajectory-tied BA (``slam/imaging.py``),
+        then sparsify the Imaging map at ``sparsify_overlap`` (None: keep
+        every keyframe). Frames in flight are committed first. Returns the
+        number of keyframes sparsification culled."""
+        self.flush()
+        self._refresh_trajectory("SLAM")
+        slam = self.trackers["SLAM"]
+        imaging = self.trackers[imaging_camera]
+        imaging._sync_dev_to_host()
+        imaging.ms = run_imaging_ba(imaging.ms, self.cameras[imaging_camera], slam.traj,
+                                    self.config.cameras[imaging_camera].Tcam)
+        if sparsify_overlap is None:
+            return 0
+        imaging.ms, n = sparsify_map(imaging.ms, self.cameras[imaging_camera],
+                                     sparsify_overlap)
+        return n
 
     # ----------------------------------------------------------------- export
 

@@ -233,6 +233,19 @@ def _schur_reduce_dense(Y, y, kf_idx, K: int, chunk: int):
     return S, bh
 
 
+def _linearize(p: BAProblem, kf_Tcw, lm_pos, lam, obs_active, huber: bool,
+               chunk: int):
+    """Linearize every observation and reduce the landmark block, dense:
+    (Hpp [K,6,6], b_pose [K,6], S_red [6K,6K], b_red [K,6], Vinv [L,3,3],
+    Wlo [L,O,6,3], b_lm [L,3], kf_idx [L,O]). For a caller that adds its
+    own pose blocks before the solve (imaging BA's trajectory anchors)."""
+    K = kf_Tcw.shape[0]
+    Hpp, b_pose, Y, y, Vinv, Wlo, b_lm, kf_idx = _linearize_factors(
+        p, kf_Tcw, lm_pos, lam, obs_active, huber)
+    S_red, b_red = _schur_reduce_dense(Y, y, kf_idx, K, chunk)
+    return Hpp, b_pose, S_red, b_red, Vinv, Wlo, b_lm, kf_idx
+
+
 def _segment_sum(vals: torch.Tensor, kf_idx: torch.Tensor, K: int) -> torch.Tensor:
     """Sum vals [L,O,...] by keyframe into [K,...], adding in row order."""
     out = torch.zeros((K,) + vals.shape[2:], dtype=vals.dtype, device=vals.device)

@@ -160,13 +160,16 @@ def gaussian_blur(img: np.ndarray, ksize: int = 7, sigma: float = 2.0):
     return out
 
 
-def render_world(cam, Tcw, pts, point_seed=0, bg=20.0, amp=180.0):
+def render_world(cam, Tcw, pts, point_seed=0, bg=20.0, amp=180.0, blob_scale=1.0):
     """Render a sparse textured image: each world point splats a small
     point-unique constellation of 5 sub-blobs (distinctive, approximately
-    viewpoint-stable descriptors). Returns ([H,W] f32, uv, visible)."""
+    viewpoint-stable descriptors). ``blob_scale`` widens the constellations
+    and the blur (2 for a camera whose images are halved before extraction:
+    they then look as a scale-1 rendering does). Returns ([H,W] f32, uv,
+    visible)."""
     rng_p = np.random.default_rng(point_seed)
     n = len(pts)
-    offs = rng_p.uniform(-4, 4, size=(n, 5, 2)).astype(np.float32)
+    offs = rng_p.uniform(-4, 4, size=(n, 5, 2)).astype(np.float32) * np.float32(blob_scale)
     amps = rng_p.uniform(0.4, 1.0, size=(n, 5)).astype(np.float32) * amp
 
     uv, z = _project(cam, Tcw, pts)
@@ -180,7 +183,7 @@ def render_world(cam, Tcw, pts, point_seed=0, bg=20.0, amp=180.0):
     yi = np.round(pos[:, 1]).astype(int)
     ok = (xi >= 0) & (xi < cam.width) & (yi >= 0) & (yi < cam.height)
     np.add.at(img, (yi[ok], xi[ok]), a[ok])
-    img = gaussian_blur(img, ksize=5, sigma=1.0)
+    img = gaussian_blur(img, ksize=2 * int(round(2 * blob_scale)) + 1, sigma=1.0 * blob_scale)
     return np.clip(img, 0, 255).astype(np.float32), uv, vis
 
 

@@ -404,3 +404,106 @@ def run_loop_circuit(sysm, feats, to_frame, perturb, flush):
             nudged = i
     flush()
     return out, nudged
+
+
+# the two-camera System of the dual-camera tests: a stereo SLAM camera and a
+# monocular Imaging camera (DEFAULT_CAM's intrinsics, tests/test_dual_camera.py's
+# rig), fed features, MapCaps(K=32, L=4096, F=256, O=8)
+DUAL_F = 256
+DUAL_DT = 0.1
+DUAL_TCAM = synth.se3_exp([0.0, 0.06, 0.02, 0.15, -0.1, 0.0]).astype(np.float32)
+
+
+def dual_camera_scene(n: int = 14, dark=(6, 9), yaw: float = 0.03, seed: int = 0):
+    """mono_sequence's world (a tilted plane and a cloud) and motion (0.12 m
+    sideways and 0.06 m forward a frame), turning by ``yaw`` rad a frame so
+    that an Imaging sub-map's keyframe centres are not collinear (on a
+    straight path the JAX package's Horn alignment leaves the rotation
+    about the path to its eigensolver). Frames dark[0]..dark[1]-1 have no
+    features in either camera. Returns (SLAM poses [n,4,4], SLAM features,
+    Imaging features), the features the JAX package's."""
+    from hyslam_tpu.core.frame import empty_features as j_empty_features
+
+    from helpers import DEFAULT_CAM, synth_frame_features
+
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(-14, 14, (2000, 2)).astype(np.float32)
+    plane = np.concatenate([xy, 6.0 + 0.25 * xy[:, :1]], -1)
+    cloud = np.stack([rng.uniform(4.5, 20, 1200), rng.uniform(-5, 5, 1200),
+                      rng.uniform(3, 10, 1200)], -1)
+    pts = np.concatenate([plane, cloud]).astype(np.float32)
+    descs = rng.integers(0, 2**32, (len(pts), 8), dtype=np.uint32)
+    delta = synth.se3_exp([0.0, yaw, 0.0, -0.12, 0.0, -0.06]).astype(np.float32)
+    Ts, T = [], np.eye(4, dtype=np.float32)
+    for _ in range(n):
+        Ts.append(T.copy())
+        T = (delta @ T).astype(np.float32)
+    slam, img = [], []
+    for i in range(n):
+        if dark[0] <= i < dark[1]:
+            slam.append(j_empty_features(DUAL_F))
+            img.append(j_empty_features(DUAL_F))
+            continue
+        slam.append(synth_frame_features(DEFAULT_CAM, Ts[i], pts, descs, rng, F=DUAL_F)[0])
+        f = synth_frame_features(DEFAULT_CAM, (DUAL_TCAM @ Ts[i]).astype(np.float32), pts,
+                                 descs, rng, F=DUAL_F)[0]
+        img.append(f._replace(ur=jnp.full_like(f.ur, -1.0), depth=jnp.full_like(f.depth, -1.0)))
+    return np.stack(Ts), slam, img
+
+
+def dual_system_configs(async_tracking=False):
+    """(the JAX package's SystemConfig, the port's on the CPU) of the
+    two-camera System; the Imaging camera makes a keyframe at least every
+    3rd frame (tests/test_dual_camera.py's policy is 4)."""
+    from hyslam_tpu.core.mapstate import MapCaps as JMapCaps
+    from hyslam_tpu.io.config import CameraConfig as JCameraConfig
+    from hyslam_tpu.io.config import SystemConfig as JSystemConfig
+    from hyslam_tpu.slam.keyframe_policy import KeyFramePolicyParams as JPolicy
+
+    from helpers import DEFAULT_CAM as c
+
+    intr = dict(fx=c.fx, fy=c.fy, cx=c.cx, cy=c.cy, width=c.width, height=c.height)
+    jcfg = JSystemConfig(
+        cameras={"SLAM": JCameraConfig(bf=c.bf, **intr),
+                 "Imaging": JCameraConfig(mono=True, Tcam=DUAL_TCAM.tolist(),
+                                          policy=JPolicy(max_kf_interval=3), **intr)},
+        caps=JMapCaps(K=32, L=4096, F=DUAL_F, O=8), enable_loop_closing=False,
+        async_tracking=async_tracking, commit_lag=2)
+    return jcfg, interop.system_config_from(jcfg, device="cpu")
+
+
+def run_dual(sysm, slam_feats, img_feats, to_features=lambda f: f, tmp=None):
+    """Both cameras' frames through a System, the Imaging frame after the
+    SLAM frame of the same time, ``place_imaging_frame`` on every frame
+    where SLAM tracks; then ``flush`` and ``run_imaging_bundle_adjustment``
+    (and the exports into ``tmp``). Returns what the tests compare, as
+    numpy."""
+    def arr(x):
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    states, keeps = [], []
+    for i, (fs, fi) in enumerate(zip(slam_feats, img_feats)):
+        sysm.track_features(to_features(fs), DUAL_DT * i, camera="SLAM", frame_id=i)
+        sysm.track_features(to_features(fi), DUAL_DT * i, camera="Imaging", frame_id=i)
+        states.append((sysm.trackers["SLAM"].state.name, sysm.trackers["Imaging"].state.name))
+        if states[-1][0] in ("NORMAL", "POSTINIT"):
+            keeps.append(bool(sysm.place_imaging_frame(DUAL_DT * i)[0]))
+    sysm.flush()
+    it = sysm.trackers["Imaging"]
+    n_kf = int(arr(it.ms.next_kf))
+    out = dict(states=states, keeps=keeps, n_kf=n_kf, n_maps=int(arr(it.ms.maps.n_maps)),
+               rows=[t.state for t in it.telemetry],
+               slam_rows=[t.state for t in sysm.trackers["SLAM"].telemetry],
+               before=arr(it.ms.kf.Tcw)[:n_kf].copy(),
+               ts=arr(it.ms.kf.timestamp)[:n_kf].copy(),
+               map_id=arr(it.ms.kf.map_id)[:n_kf].copy())
+    sysm.run_imaging_bundle_adjustment()
+    out.update(after=arr(it.ms.kf.Tcw)[:n_kf].copy(), bad=arr(it.ms.kf.bad)[:n_kf].copy(),
+               registered=arr(it.ms.maps.registered)[:out["n_maps"]].copy())
+    if tmp is not None:
+        import os
+
+        sysm.export_colmap(str(tmp))
+        sysm.save_keyframes_agisoft(os.path.join(str(tmp), "imaging.xml"), camera="Imaging")
+        sysm.save_trajectory(os.path.join(str(tmp), "slam_traj.tsv"))
+    return out

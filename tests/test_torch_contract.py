@@ -183,9 +183,17 @@ def test_cuda_wrapper_raises_on_cpu_tensors():
     before = pose_optimization_cuda.launches
     with pytest.raises(ValueError, match="CUDA"):
         pose_optimization_cuda(SMALL_CAM, *args)
-    with pytest.raises(ValueError, match="N <= 1024"):
-        pose_optimization_cuda(SMALL_CAM, torch.zeros(1, 4, 4), torch.zeros(1, 1025, 3),
+    with pytest.raises(ValueError, match="N <= 4096"):
+        pose_optimization_cuda(SMALL_CAM, torch.zeros(1, 4, 4), torch.zeros(1, 4097, 3),
                                *args[2:])
+    # N = 4096 passes the size check and every shape check, and is refused
+    # only for lying on the CPU
+    N = 4096
+    big = [torch.zeros(B, 4, 4), torch.zeros(B, N, 3), torch.zeros(B, N, 2),
+           torch.zeros(B, N), torch.zeros(B, N),
+           torch.zeros(B, N, dtype=torch.bool), torch.zeros(B, N, dtype=torch.bool)]
+    with pytest.raises(ValueError, match="expected CUDA tensors"):
+        pose_optimization_cuda(SMALL_CAM, *big)
     assert pose_optimization_cuda.launches == before
 
 

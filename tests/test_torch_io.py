@@ -303,7 +303,7 @@ def test_resolve_tracking_params_matches_jax(camera, is_mono):
 
 
 def test_feature_family():
-    """ORB resolves to the atlas extractors; SURF raises with its step."""
+    """ORB resolves to the atlas extractors; SURF to the Hessian family."""
     fam = make_family(ExtractorConfig(n_features=100, n_levels=4))
     assert (fam.name, fam.th_high, fam.th_low) == ("ORB", 100.0, 50.0)
     img = torch.from_numpy(stereo_pair(np.eye(4, dtype=np.float32), small_world()))
@@ -312,8 +312,11 @@ def test_feature_family():
     for a, b in zip(one, two):
         assert torch.equal(a, b[0])
     assert fam.distance_matrix(one.desc[:4], one.desc).shape == (4, 128)
-    with pytest.raises(NotImplementedError, match="step 18"):
-        make_family(ExtractorConfig(family="SURF"))
+    surf = make_family(ExtractorConfig(family="SURF", n_features=100))
+    assert (surf.name, surf.th_high, surf.th_low) == ("SURF", 100.0, 50.0)
+    assert surf.distance_matrix is fam.distance_matrix
+    got = surf.extract_batch(img, capacity=128)
+    assert got.uv.shape == (2, 128, 2) and bool(got.valid.any())
     with pytest.raises(ValueError, match="unknown feature family"):
         make_family(ExtractorConfig(family="SIFT"))
 

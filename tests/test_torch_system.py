@@ -216,12 +216,6 @@ def _cfg(**kw):
 
 @pytest.mark.parametrize("kw,step", [
     (dict(pipelined=True), "step 19"),
-    (dict(cameras={"SLAM": CameraConfig(mono=True), "Imaging": CameraConfig(mono=True)}),
-     "step 17"),
-    (dict(cameras={"SLAM": CameraConfig(bf=45.0),
-                   "Imaging": CameraConfig(mono=True, scale=0.5)}), "step 17"),
-    (dict(cameras={"SLAM": CameraConfig(bf=45.0, extractor=ExtractorConfig(family="SURF"))}),
-     "step 18"),
 ])
 def test_unported_config_options_raise(kw, step):
     with pytest.raises(NotImplementedError, match=step):
@@ -232,13 +226,25 @@ def test_unported_config_options_raise(kw, step):
                                 dict(cameras={"SLAM": CameraConfig(mono=True)}),
                                 dict(enable_loop_closing=True),
                                 dict(optimizer=OptimizerInfo(realtime=False),
-                                     enable_loop_closing=True)])
+                                     enable_loop_closing=True),
+                                dict(cameras={"SLAM": CameraConfig(mono=True),
+                                              "Imaging": CameraConfig(mono=True)}),
+                                dict(cameras={"SLAM": CameraConfig(bf=45.0),
+                                              "Imaging": CameraConfig(mono=True, scale=0.5)}),
+                                dict(cameras={"SLAM": CameraConfig(
+                                    bf=45.0, extractor=ExtractorConfig(family="SURF"))})])
 def test_ported_config_options_build(kw):
-    """Periodic global BA, a monocular camera and loop closing (alone and
-    with periodic global BA) no longer raise."""
+    """Periodic global BA, a monocular camera, loop closing (alone and with
+    periodic global BA), a second camera (each with its own tracker and
+    cam_id; the Imaging camera at half scale) and the SURF family no longer
+    raise."""
     s = System(_cfg(**kw))
     assert s.trackers["SLAM"].is_mono == s.config.cameras["SLAM"].mono
     assert s.loop_closers == {}
+    for i, (name, cc) in enumerate(s.config.cameras.items()):
+        assert s.trackers[name].cam_id == i and s.trackers[name].is_mono == cc.mono
+        assert s.cameras[name].width == round(cc.width * cc.scale)
+        assert s._families[name].name == cc.extractor.family
 
 
 def test_unported_entry_points_raise_and_defaults():
@@ -251,10 +257,14 @@ def test_unported_entry_points_raise_and_defaults():
     img = np.zeros((480, 640), np.float32)
     # a flat image: nothing to extract, the tracker stays in INITIALIZE
     assert s.track_monocular(img, 0.0).state == "INITIALIZE"
-    with pytest.raises(NotImplementedError, match="step 17"):
-        s.place_imaging_frame(0.0)
-    with pytest.raises(NotImplementedError, match="step 17"):
-        s.run_imaging_bundle_adjustment()
+    # the Imaging camera's entry points: before any SLAM tracking there is
+    # no trajectory to place a frame by, and no Imaging keyframe to adjust
+    dual = System(_cfg(cameras={"SLAM": CameraConfig(bf=45.0),
+                                "Imaging": CameraConfig(mono=True)}))
+    keep, Tcw = dual.place_imaging_frame(0.0)
+    assert keep is False and tuple(Tcw.shape) == (4, 4)
+    assert dual.run_imaging_bundle_adjustment() == 0
+    assert int(dual.trackers["Imaging"].ms.next_kf) == 0
     from hyslam_tpu_torch.core.sensordata import SensorData
     tel = s.track_features(empty_features(1024), 0.0,
                            sensor_data=SensorData(depth=1.0, depth_valid=True))
