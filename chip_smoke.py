@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's stereo front end, tracker and System on one CUDA card,
 through a loss of tracking, with sensor readings, with a monocular camera,
-with periodic global BA, with loop closing, with a second (Imaging) camera
-and with the SURF feature family.
+with periodic global BA, with loop closing, with a second (Imaging) camera,
+with the SURF feature family and through the threaded pipeline.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card and
 the CUDA toolkit:
@@ -197,6 +197,35 @@ It exits non-zero, printing no result, where CUDA is not available. Phases:
    sparsification (and what it culled), the synchronising calls of a
    steady Imaging frame, peak device memory (a ``phase 9 timing:`` line).
 
+10. The threaded pipeline: ``System(pipelined=True)`` (the reference's
+   tracking and mapping threads over the native queues of
+   ``runtime/native.py``) at phase 5's operating point, built with no
+   device given. *10a*: the 60 frames through ``track_stereo`` with
+   ``run_data_dir`` set, loop closing off. Gates: 60 rows in frame order
+   ending NORMAL; every keyframe after the first integrated by the mapping
+   thread; K1 launches as the telemetry calls for; ATE and worst frame
+   within phase 5's async bounds, keyframes from phase 5's async count
+   less 5 to its sync count; one keyframe decision a frame after POSTINIT,
+   every keyframe taken at one that read the mapping stage idle (the
+   policy's optional keyframes need it); the replay, a synchronous System whose
+   tracker replays 10a's schedule (``ReplaySchedule``: its idle reads, and
+   the frames where its tracker took the mapper's map), gives 10a's
+   telemetry rows and poses bit for bit; the frame dumps of frames 0, 20
+   and 40 decode to the annotated image's size; the TSV logs' rows; a
+   ``viz.Viewer`` snapshot of the final map. Printed beside phase 5's sync
+   and async frames/s: frames/s (the same clock), keyframes, the tracking
+   thread's waits in ``drain_mapping``, the mapping thread's busy share,
+   the median mapper job and tracking frame, and the replay's, alone (a
+   ``phase 10 timing:`` line).
+   *10b*: 6a's blackout over the first N_BLACKOUT10 frames through a
+   pipelined System with loop closing on and a global BA every
+   GBA_EVERY_10B keyframes: REINITIALIZE, ``>REINIT_OK`` and 2 maps, every
+   global BA on the mapping thread, 6a's ATE and worst-frame bounds, K1 as
+   the telemetry calls for; then ``shutdown()`` (``track_features``
+   refused), ``reset()`` and N_AFTER_RESET frames tracked to NORMAL. A
+   thread's exception reaches the script through ``flush`` or
+   ``shutdown`` and fails it.
+
 Prints the card line, one JSON line of kernel results (with the kernel's
 time: its bound and what sets it, its fixed part and its time an
 iteration), and last
@@ -226,7 +255,7 @@ IMG_CAPS = (64, 16384, 3072, 8)    # phase 9's shared arena: F for 3000 features
 N_LANDMARKS = 4096
 N_POINTS = 4000
 N_TIMED = 100
-N_TIMED_PLAIN = 20            # calls a run of the plain solver (160 ms a call)
+N_TIMED_PLAIN = 10            # calls a run of the plain solver (160 ms a call)
 N_ODD = 4093                  # phase 1: a problem of four chunks, N % 4 != 0
 # per-frame pose bounds against the rendered truth. The map is seeded from
 # frame 0 only, so the error grows as the camera moves away from it: frames
@@ -340,6 +369,17 @@ N_ASYNC9 = 60                 # frames of 9b
 # 9c: a stereo System with family SURF at phase 5's operating point
 N_SURF, SURF_CHECK = 20, (0, 10, 19)
 MAX_SURF_BIT_FRACTION = 0.005
+# phase 10: the pipelined System (the reference's tracking and mapping
+# threads) at phase 5's operating point. The keyframe policy's mapping-idle
+# gate reads the real mapping queue here. 10a is held to phase 5's async
+# bounds and keyframes from phase 5's async count less 5 to its sync count;
+# besides, the policy must read the stage (after POSTINIT every keyframe is
+# taken at a decision that found it idle), and
+# the threads must compute what a synchronous System computes on the same
+# schedule (the replay: ReplaySchedule), bit for bit, as phase 5 holds its
+# sync run to phase 4's.
+DUMP_FRAMES = (0, 20, 40)
+N_BLACKOUT10, GBA_EVERY_10B, N_AFTER_RESET = 40, 8, 10
 
 
 def log(msg: str) -> None:
@@ -979,7 +1019,7 @@ def make_system(cam, cfg, camera_kw=None, caps=TRACK_CAPS, **kw):
                                 height=cam.height, bf=cam.bf, th_depth=cam.th_depth,
                                 extractor=cfg), **(camera_kw or {})})
     return System(SystemConfig(cameras={"SLAM": cc}, caps=MapCaps(*caps),
-                               enable_loop_closing=False, **kw))
+                               **{"enable_loop_closing": False, **kw}))
 
 
 def tracked_row(t) -> bool:
@@ -1061,7 +1101,8 @@ def trajectory_errors(tracker, poses):
 
 def phase5(cam, cfg, poses, pairs, pts, tracked):
     """The System on the whole sequence; see the module docstring. Returns
-    the K1 launches of its gated runs and the async run's frame lines."""
+    the K1 launches of its gated runs, the async run's frame lines and the
+    timing line's numbers."""
     import tempfile
 
     from hyslam_tpu_torch.io.datasets import KittiOdometry
@@ -1154,12 +1195,13 @@ def phase5(cam, cfg, poses, pairs, pts, tracked):
          launches == expected(tr))
     gate("async: two runs print identical frame lines",
          async_lines == frame_lines(runs[1][0]) and runs[1][1] == launches)
-    log("phase 5 timing: " + json.dumps({
+    timing = {
         "frames_timed": n - N_WARM,
         "sync_frames_per_s": fps_sync, "sync_ms_per_frame": ms_sync,
         "async_frames_per_s": fps_async, "async_ms_per_frame": ms_async,
         "keyframes_sync": sum(k >= 0 for k in tracked["keyframes"]), "keyframes_async": n_kf,
-    }))
+    }
+    log("phase 5 timing: " + json.dumps(timing))
 
     # -- the synchronising calls of a steady-state async frame
     own = sorted({site for _, sites in per_frame for site in sites
@@ -1239,7 +1281,7 @@ def phase5(cam, cfg, poses, pairs, pts, tracked):
          resumed.trackers["SLAM"].ms.lm.pos.device.type == "cuda")
     if failed:
         raise AssertionError("phase 5 failed: " + "; ".join(failed))
-    return total, async_lines
+    return total, async_lines, timing
 
 
 def phase6(cam, cfg, poses, pairs, tracked, async_lines5):
@@ -1942,40 +1984,41 @@ def phase8(cam, cfg, dev):
                 return out
             return wrapped
 
-        def spied_close(camera, closer, kf_id):
-            before = {m: kf_errors(tr.ms, m) for m in (0, 1)}
+        def spied_close(camera, closer, ms, kf_id, live, sensors=None):
+            before = {m: kf_errors(ms, m) for m in (0, 1)}
             rec["stages"] = []
             counted = N_WARM <= frame["i"] < N_SYNC_COUNT + 10
             sites = {}
             if counted:
                 def go():
-                    sites["out"] = timed(close_loop, camera, closer, kf_id)
+                    sites["out"] = timed(close_loop, camera, closer, ms, kf_id, live, sensors)
                 rec["sync"].append(sync_sites(go))
-                closed, ms_ = sites["out"]
+                (out, closed), ms_ = sites["out"]
             else:
-                closed, ms_ = timed(close_loop, camera, closer, kf_id)
+                (out, closed), ms_ = timed(close_loop, camera, closer, ms, kf_id, live, sensors)
             if closed:
                 rec["closures"].append(dict(
-                    kf=kf_id, frame=int(tr.ms.kf.frame_id[kf_id]), ms=ms_,
+                    kf=kf_id, frame=int(out.kf.frame_id[kf_id]), ms=ms_,
                     stages=list(rec["stages"]),
-                    before=before, after={m: kf_errors(tr.ms, m) for m in (0, 1)}))
+                    before=before, after={m: kf_errors(out, m) for m in (0, 1)}))
             else:
                 rec["maint"].append(ms_)
-            return closed
+            return out, closed
 
-        def spied_get(camera):
+        def spied_get(camera, ms):
             if camera in sysm.loop_closers:
-                return get_closer(camera)
-            out, ms_ = timed(get_closer, camera)
+                return get_closer(camera, ms)
+            out, ms_ = timed(get_closer, camera, ms)
             if out is not None:
                 rec["built"] = (frame["i"], ms_)
             return out
 
         global_ba = sysm._global_ba
 
-        def spied_gba(camera, **k):
-            _, ms_ = timed(global_ba, camera, **k)
+        def spied_gba(camera, ms, *a, **k):
+            out, ms_ = timed(global_ba, camera, ms, *a, **k)
             rec["stages"].append(("global_ba", ms_, True))
+            return out
 
         sysm._close_loop, sysm._get_loop_closer = spied_close, spied_get
         sysm._global_ba = spied_gba
@@ -2335,6 +2378,313 @@ def phase9(cam, cfg, poses, pairs, pts):
     return total
 
 
+def png_shape(path: str):
+    """(width, height) of an 8-bit RGB PNG whose pixel data decodes to
+    exactly its rows (one filter byte and 3 bytes a pixel each); raises
+    otherwise."""
+    import struct
+    import zlib
+
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG")
+    w, h = struct.unpack(">II", data[16:24])
+    idat, pos = b"", 8
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        if tag == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    if len(zlib.decompress(idat)) != h * (1 + 3 * w):
+        raise ValueError(f"{path}: pixel data is not {w}x{h} RGB")
+    return w, h
+
+
+def busy_share(spans, t0: float, t1: float) -> float:
+    """The share of [t0, t1] covered by the union of (start, end) spans."""
+    covered, last = 0.0, t0
+    for a, b in sorted(spans):
+        a, b = max(a, last), min(b, t1)
+        if b > a:
+            covered += b - a
+            last = b
+    return covered / (t1 - t0)
+
+
+class ReplaySchedule:
+    """A tracker's ``mapping_status`` that replays a pipelined run's schedule
+    (``_Stages.idle_reads`` and ``adoptions``) synchronously: the mapping
+    stage reads idle where the run's decision did and busy (one job)
+    elsewhere; a keyframe's mapper jobs run at once on the refreshed map,
+    as the mapping thread ran them, and their output is handed to the
+    tracker where the run's tracker took it. The caller calls ``begin``
+    before each frame. A synchronous System whose tracker holds it computes
+    what the pipelined System computed, without the threads."""
+
+    def __init__(self, tracker, idle_reads, adoptions):
+        self.tracker, self.frame_id, self._out = tracker, -1, None
+        self._idle = {f for _, f, idle in idle_reads if idle}
+        self._adopt = {(f, where) for _, f, where in adoptions}
+
+    def begin(self, frame_id: int) -> None:
+        self.frame_id = frame_id
+        if (frame_id, "before") in self._adopt:
+            self._take()
+
+    def _take(self):
+        if self._out is not None:
+            self.tracker.ms, self._out = self._out, None
+
+    def idle(self) -> bool:
+        return self.frame_id in self._idle
+
+    def queue_len(self) -> int:
+        return 0 if self.idle() else 1
+
+    def sync(self, tracker) -> None:
+        if (self.frame_id, "in") in self._adopt:
+            self._take()
+
+    def defer(self, ms, kf_id, maintenance_sensors, **kw):
+        from hyslam_tpu_torch.runtime.pipeline import _mandatory_refresh
+
+        ms = _mandatory_refresh(ms)
+        self._out, _ = self.tracker.mapper.integrate_keyframe(ms, kf_id, **kw)
+        return ms, {"deferred": True}
+
+
+def phase10(cam, cfg, poses, pairs, timing5=None):
+    """The pipelined System; see the module docstring. ``timing5``: phase
+    5's timing numbers, printed beside 10a's (alone, without them, the sync
+    count is taken as one keyframe a frame). Returns the K1 launches of its
+    runs."""
+    import tempfile
+    import threading
+
+    from hyslam_tpu_torch.io.config import OptimizerInfo
+    from hyslam_tpu_torch.ops.pose_opt_cuda import pose_optimization_cuda
+    from hyslam_tpu_torch.slam import system as system_mod
+    from hyslam_tpu_torch.slam.tracker import POSTINIT_FRAMES, State
+    from hyslam_tpu_torch.utils import synth
+    from hyslam_tpu_torch.viz import Viewer
+    from hyslam_tpu_torch.viz.frame_drawer import BAR_H
+
+    n = len(poses)
+    failed = []
+    total = 0
+
+    def gate(name, ok):
+        log(f"phase 10 gate {'ok' if ok else 'FAILED'}: {name}")
+        if not ok:
+            failed.append(name)
+
+    # ---- 10a: the 60 frames through System(pipelined=True), with the logs
+    # and frame dumps of run_data_dir
+    with tempfile.TemporaryDirectory() as run_dir:
+        sysm = make_system(cam, cfg, pipelined=True, run_data_dir=run_dir)
+        pipe, tr = sysm._pipe, sysm.trackers["SLAM"]
+        gate("10a: the System took the card and built its pipeline",
+             sysm.device.type == "cuda" and pipe is not None and tr.mapping_status is not None)
+        pose_optimization_cuda.launches = 0
+        t0 = None
+        for i in range(n):
+            if i == N_WARM:
+                sysm.flush()
+                t0 = time.perf_counter()
+            out = sysm.track_stereo(pairs[i, 0], pairs[i, 1], FRAME_DT * i, frame_id=i)
+            assert out is None, "a pipelined track_stereo returns None"
+        sysm.flush()
+        t1 = time.perf_counter()
+        launches = pose_optimization_cuda.launches
+        total += launches
+        tels = pipe.telemetry
+        kf_rows = [t for t in tels if t.kf_inserted >= 0]
+        idx, ate, errs = trajectory_errors(tr, poses)
+        for t in tels:
+            log(f"  10a frame {t.frame_id}: {t.state} motion {t.n_motion} inliers {t.n_inliers} "
+                f"kf {t.kf_inserted} {t.mapper_stats or ''}")
+        fps = (n - N_WARM) / (t1 - t0)
+        timing5 = timing5 or dict(keyframes_sync=n, keyframes_async=None,
+                                  sync_frames_per_s=None, async_frames_per_s=None)
+        kf_sync, kf_async = timing5["keyframes_sync"], timing5["keyframes_async"]
+        log(f"phase 10a pipelined: {len(tels)} rows, {len(kf_rows)} keyframes at frames "
+            f"{[t.frame_id for t in kf_rows]}, ATE {ate:.6f} m, worst frame "
+            f"{int(idx[int(np.argmax(errs))])} at {max(errs):.6f} m, K1 launches {launches}, "
+            f"expected {expected_launches(tr)}")
+        gate(f"10a: {n} telemetry rows in frame order, ending NORMAL",
+             [t.frame_id for t in tels] == list(range(n)) and tels[-1].state == "NORMAL"
+             and tr.state == State.NORMAL and tr.telemetry == tels)
+        gate("10a: every keyframe after the first integrated by the mapping thread",
+             len(kf_rows) > 1 and all(t.mapper_stats == {"deferred": True} for t in kf_rows[1:])
+             and len(pipe.mapping_spans) == len(kf_rows) - 1)
+        gate(f"10a: K1 launches {launches} == {expected_launches(tr)} from the telemetry",
+             launches == expected_launches(tr))
+        kf_frames = [t.frame_id for t in kf_rows]
+        decisions = [(f, idle) for _, f, idle in pipe.idle_reads if f > POSTINIT_FRAMES]
+        n_idle = sum(idle for _, idle in decisions)
+        gate(f"10a: one keyframe decision a frame after POSTINIT, {n_idle} of "
+             f"{len(decisions)} reading the mapping stage idle; every keyframe taken at one",
+             [f for f, _ in decisions] == list(range(POSTINIT_FRAMES + 1, n))
+             and all(idle for f, idle in decisions if f in kf_frames))
+        dumps = sorted(f for f in os.listdir(run_dir) if f.endswith(".png"))
+        want = [f"features_SLAM_{i:06d}.png" for i in DUMP_FRAMES]
+        shapes = [png_shape(os.path.join(run_dir, f)) for f in dumps]
+        gate(f"10a: the frame dumps {want} decode to {W}x{H + BAR_H}",
+             dumps == want and shapes == [(W, H + BAR_H)] * len(want))
+        sysm.shutdown()
+        logs = {f: open(os.path.join(run_dir, f)).read().splitlines()
+                for f in ("tracking_data.txt", "localmapping_data.txt")}
+        gate(f"10a: the TSV logs hold {n} tracking rows and {len(kf_rows) - 1} mapping rows",
+             len(logs["tracking_data.txt"]) == n + 1
+             and len(logs["localmapping_data.txt"]) == len(kf_rows))
+        viewer = Viewer(out_dir=os.path.join(run_dir, "viz"))
+        centres = -torch.einsum("kji,kj->ki", tr.traj.Tcw[:, :3, :3],
+                                tr.traj.Tcw[:, :3, 3])[:int(tr.traj.size)]
+        viewer.update(tr.ms, current_Tcw=tr.last_Tcw, trajectory_centers=centres)
+        snap = viewer.snapshot()
+        gate("10a: Viewer.snapshot of the final map decodes to its 960x720",
+             len(snap) == 1 and png_shape(snap[0]) == (960, 720))
+
+    # the replay: a synchronous System on 10a's schedule; its tracking
+    # frames and mapper jobs are timed alone
+    rsys = make_system(cam, cfg)
+    rtr = rsys.trackers["SLAM"]
+    replay = ReplaySchedule(rtr, pipe.idle_reads, pipe.adoptions)
+    rtr.mapping_status = replay
+    job_rows, alone_ms, track = time_integrate(rtr), [], rtr.track
+
+    def timed_track(*a, **kw):
+        n_jobs = len(job_rows)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tel = track(*a, **kw)
+        torch.cuda.synchronize()
+        alone_ms.append(1e3 * (time.perf_counter() - t)
+                        - sum(ms for _, ms, _ in job_rows[n_jobs:]))   # less its mapper job
+        return tel
+
+    rtr.track = timed_track
+    pose_optimization_cuda.launches = 0
+    for i in range(n):
+        replay.begin(i)
+        rsys.track_stereo(pairs[i, 0], pairs[i, 1], FRAME_DT * i, frame_id=i)
+    rsys.flush()
+    launches = pose_optimization_cuda.launches
+    total += launches
+    r_lines, lines = frame_lines(rtr), frame_lines(tr)
+    r_ate = trajectory_errors(rtr, poses)[1]
+    d_pose = float((rtr.traj.Tcw[:n] - tr.traj.Tcw[:n]).abs().max())
+    log(f"phase 10a replay: {sum(t.kf_inserted >= 0 for t in rtr.telemetry)} keyframes, ATE "
+        f"{r_ate:.6f} m, max|dT| against 10a {d_pose:.3g}, {len(pipe.adoptions)} adoptions "
+        f"{[(f, w) for _, f, w in pipe.adoptions]}, K1 launches {launches}, expected "
+        f"{expected_launches(rtr)}")
+    gate("10a: the synchronous replay of its schedule gives 10a's telemetry rows and poses, "
+         "bit for bit, K1 as its telemetry calls for",
+         r_lines == lines and int(rtr.traj.size) == n and launches == expected_launches(rtr))
+    gate(f"10a: ATE < {MAX_ATE} m and every frame < {MAX_T_TRACK} m (phase 5's async bounds)",
+         ate < MAX_ATE and max(errs) < MAX_T_TRACK and list(idx) == list(range(n)))
+    low = kf_async - 5 if kf_async is not None else 0     # alone: phase 5 not run
+    gate(f"10a: keyframes {len(kf_rows)} between phase 5's async count less 5 ({low}) and its "
+         f"sync count ({kf_sync})", low <= len(kf_rows) <= kf_sync)
+
+    waits = [1e3 * w for w in pipe.drain_waits]
+    frames = [(1e3 * (b - a), 1e3 * cpu) for (a, b, cpu), t
+              in zip(pipe.frame_spans, tels) if t.frame_id >= N_WARM]
+    jobs = [1e3 * (b - a) for a, b, _ in pipe.mapping_spans if a >= t0]
+    med = lambda xs: statistics.median(xs) if xs else float("nan")  # noqa: E731
+    timing = {
+        "card": card_line(), "frames_timed": n - N_WARM,
+        "pipelined_frames_per_s": fps, "pipelined_ms_per_frame": 1e3 / fps,
+        "sync_frames_per_s": timing5["sync_frames_per_s"],
+        "async_frames_per_s": timing5["async_frames_per_s"],
+        "keyframes_pipelined": len(kf_rows), "keyframes_sync": kf_sync,
+        "keyframes_async": kf_async,
+        "drain_wait_ms_median_a_keyframe": med(waits), "drain_wait_ms_max": max(waits),
+        "drains": len(waits),
+        "mapping_thread_busy_share": busy_share([(a, b) for a, b, _ in pipe.mapping_spans],
+                                                t0, t1),
+        "mapping_job_ms_median_max": [med(jobs), max(jobs, default=float("nan"))],
+        "mapping_job_ms_median_alone_replay": med(
+            [ms for kf, ms, _ in job_rows if kf > POSTINIT_FRAMES]),
+        "tracking_frame_ms_median": med([f for f, _ in frames]),
+        "tracking_frame_cpu_ms_median": med([c for _, c in frames]),
+        "tracking_frame_ms_median_alone_replay": med(alone_ms[N_WARM:]),
+    }
+    log("phase 10 timing: " + json.dumps(timing))
+
+    # ---- 10b: 6a's blackout, loop closing on, periodic global BA on the
+    # mapping thread; then shutdown, refusal, reset and more frames
+    dark = synth.blackout(pairs, *DARK)
+    gba_threads = []
+    run_global_ba = system_mod.run_global_ba
+
+    def spied_run(*a, **kw):
+        gba_threads.append(threading.current_thread().name)
+        return run_global_ba(*a, **kw)
+
+    system_mod.run_global_ba = spied_run
+    try:
+        sysm = make_system(cam, cfg, pipelined=True, enable_loop_closing=True,
+                           optimizer=OptimizerInfo(realtime=False, gba_interval=GBA_EVERY_10B))
+        tr = sysm.trackers["SLAM"]
+        pose_optimization_cuda.launches = 0
+        for i in range(N_BLACKOUT10):
+            sysm.track_stereo(dark[i, 0], dark[i, 1], FRAME_DT * i, frame_id=i)
+        sysm.flush()
+    finally:
+        system_mod.run_global_ba = run_global_ba
+    launches = pose_optimization_cuda.launches
+    total += launches
+    states = [t.state for t in tr.telemetry]
+    idx, ate, errs = trajectory_errors(tr, poses)
+    n_maps = int(tr.ms.maps.n_maps)
+    closer = sysm.loop_closers.get("SLAM")
+    log(f"phase 10b pipelined blackout: states {states}, n_maps {n_maps}, "
+        f"{sum(t.kf_inserted >= 0 for t in tr.telemetry)} keyframes, global BA on threads "
+        f"{gba_threads}, loop closer built {closer is not None} (closed "
+        f"{closer.n_closed if closer else 0}), ATE {ate:.6f} m, worst frame "
+        f"{int(idx[int(np.argmax(errs))])} at {max(errs):.6f} m, K1 launches {launches}, "
+        f"expected {expected_launches(tr)}")
+    gate(f"10b: REINITIALIZE ... REINIT_OK at frame {DARK[1]}, n_maps 2",
+         any(s.startswith("REINITIALIZE") for s in states)
+         and states[DARK[1]] == "REINITIALIZE>REINIT_OK"
+         and sum(">REINIT_OK" in s for s in states) == 1 and n_maps == 2)
+    gate("10b: at least one global BA, every one on the mapping thread",
+         len(gba_threads) >= 1 and set(gba_threads) == {"hyslam-mapping"})
+    gate(f"10b: ATE < {MAX_ATE_BLACKOUT} m and every tracked frame < {MAX_T_BLACKOUT} m",
+         ate < MAX_ATE_BLACKOUT and max(errs) < MAX_T_BLACKOUT)
+    gate(f"10b: K1 launches {launches} == {expected_launches(tr)} from the telemetry",
+         launches == expected_launches(tr))
+    old_pipe = sysm._pipe
+    sysm.shutdown()
+    try:
+        sysm.track_features(tr.last_feats, 99.0)
+        refused = False
+    except RuntimeError:
+        refused = True
+    gate("10b: shutdown joins both threads, then track_features raises RuntimeError",
+         refused and not any(t.is_alive() for t in old_pipe._threads))
+    sysm.reset()
+    tr = sysm.trackers["SLAM"]
+    pose_optimization_cuda.launches = 0
+    for i in range(N_AFTER_RESET):
+        sysm.track_stereo(pairs[i, 0], pairs[i, 1], FRAME_DT * i, frame_id=i)
+    sysm.flush()
+    launches = pose_optimization_cuda.launches
+    total += launches
+    rows = [t.state for t in sysm._pipe.telemetry]
+    log(f"phase 10b after reset: {rows}, K1 launches {launches}, expected "
+        f"{expected_launches(tr)}")
+    gate(f"10b: reset() gives a new pipeline that tracks {N_AFTER_RESET} more frames to NORMAL",
+         sysm._pipe is not old_pipe and len(rows) == N_AFTER_RESET
+         and [t.frame_id for t in tr.telemetry] == list(range(N_AFTER_RESET))
+         and tr.state == State.NORMAL and launches == expected_launches(tr))
+    sysm.shutdown()
+    if failed:
+        raise AssertionError("phase 10 failed: " + "; ".join(failed))
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2360,12 +2710,13 @@ def main() -> int:
     poses, pairs, pts = timed("render", render_sequence, cam, dev, N_TRACK)
     launches = timed("2-3", phase2, dev, cam, cfg, poses, pairs)
     tracked = timed("4", phase4, dev, cam, cfg, poses, pairs)
-    launches5, async_lines = timed("5", phase5, cam, cfg, poses, pairs, pts, tracked)
+    launches5, async_lines, timing5 = timed("5", phase5, cam, cfg, poses, pairs, pts, tracked)
     launches += tracked["launches"] + launches5
     launches += timed("6", phase6, cam, cfg, poses, pairs, tracked, async_lines)
     launches += timed("7", phase7, cam, cfg, poses, pairs)
     launches += timed("8", phase8, cam, cfg, dev)
     launches += timed("9", phase9, cam, cfg, poses, pairs, pts)
+    launches += timed("10", phase10, cam, cfg, poses, pairs, timing5)
     log(f"seconds a phase: {json.dumps(took)}")
     log(json.dumps({"kernels": [{
         "name": "pose_opt",

@@ -91,6 +91,9 @@ def pose_optimization_cuda(
             torch.cuda.current_stream(dev).cuda_stream,
         )
     kernels.check(lib, code, "pose_opt kernel launch")
+    # one thread launches K1: under the threaded pipeline the tracking
+    # thread (the mapping thread's jobs, loop closing and global BA never
+    # reach it), so the count needs no lock
     pose_optimization_cuda.launches += 1
     return Tout, inl, ninl, chi2
 

@@ -535,9 +535,13 @@ def _has_priors(ms: MapState, sensors) -> bool:
 class Mapper:
     """Sequences the jobs per keyframe: the mandatory refreshes and landmark
     culling, triangulation and fusion, then (from the 4th integrated
-    keyframe) local BA and keyframe culling. The reference's budget levels,
-    which a backed-up mapping queue lowers, come with the threaded pipeline
-    (ROADMAP step 19)."""
+    keyframe) local BA and keyframe culling. ``budget_level`` is the
+    reference's interrupt / suppression protocol (Mapping.cpp:285-304): 0
+    the mandatory jobs only, 1 with triangulation and fusion, 2 (the
+    default) everything. It and ``cull_kfs`` are kept for parity with the
+    JAX mapper: no path of the port lowers them, since the threaded
+    pipeline drains its mapping stage before every insertion and so never
+    has a keyframe waiting."""
 
     def __init__(self, cam: Camera, params: MapperParams | None = None,
                  is_mono: bool = False, n_levels: int = 8,
@@ -550,12 +554,17 @@ class Mapper:
         self.kf_count = 0
         self.n_prior_ba = 0   # local-BA jobs that took the prior path
 
-    def integrate_keyframe(self, ms: MapState, kf_id: int, sensors=None,
+    def integrate_keyframe(self, ms: MapState, kf_id: int, budget_level: int = 2,
+                           cull_kfs: bool = True, sensors=None,
                            opt_info=None, fetch_stats: bool = True,
                            has_priors: bool | None = None,
                            cam_table: CamArrays | None = None):
-        """Run the jobs for keyframe kf_id. Returns (ms, stats): the job
-        counters read back in one transfer, and ba_cost when local BA ran.
+        """Run the jobs for keyframe kf_id. ``budget_level`` >= 1 adds
+        triangulation and fusion to the mandatory jobs, >= 2 local BA (from
+        the 4th integrated keyframe) and, with ``cull_kfs``, keyframe
+        culling (a stereo camera's). Returns (ms, stats): the job
+        counters read back in one transfer (triangulated, fused and
+        fuse_added at budget 1 or more), and ba_cost when local BA ran.
         With fetch_stats=False nothing is read back for the counters: they
         ride back as a tensor under stats["counters"] (the async tracking
         loop's path). ``has_priors`` lets the caller supply the host-known
@@ -567,9 +576,9 @@ class Mapper:
         kf_id = int(kf_id)
         stats = {}
         p = self.params
-        ms, counters = _integrate_core(ms, kf_id, p, self.cam, self.is_mono, True,
-                                       self.n_levels, self.scale_factor)
-        if self.kf_count > 2:
+        ms, counters = _integrate_core(ms, kf_id, p, self.cam, self.is_mono,
+                                       budget_level >= 1, self.n_levels, self.scale_factor)
+        if budget_level >= 2 and self.kf_count > 2:
             if has_priors is None:
                 has_priors = _has_priors(ms, sensors)
             # 16 local keyframes / 2048 landmarks, as the JAX package's caps
@@ -582,7 +591,7 @@ class Mapper:
             else:
                 ms, cost = _local_ba_noprior(ms, kf_id, self.cam, 16, 2048,
                                              self.n_levels, self.scale_factor, cam_table)
-            if not self.is_mono:
+            if cull_kfs and not self.is_mono:
                 ms, n_cull = cull_keyframes(ms, kf_id, self.cam, p)
                 counters = torch.cat([counters, n_cull[None]])
             if fetch_stats:
@@ -592,7 +601,8 @@ class Mapper:
             stats["counters"] = counters
             return ms, stats
         c = counters.tolist()
-        stats["triangulated"], stats["fused"], stats["fuse_added"] = c[:3]
+        if budget_level >= 1:
+            stats["triangulated"], stats["fused"], stats["fuse_added"] = c[:3]
         if len(c) > 3:
             stats["kf_culled"] = c[3]
         if "ba_cost" in stats:

@@ -39,22 +39,28 @@ sparsifies the Imaging map (``slam/imaging.py``, ``slam/sparsify.py``).
 Also the data exporters (trajectory TSV / TUM, COLMAP, Agisoft XML, map
 points), map and checkpoint files, and the TSV telemetry logs.
 
-The system lives on ``config.device``; with none given it takes the current
-CUDA card and raises where there is none. It is single-threaded and uses one
-stream.
+The threaded pipeline (``pipelined=True``, ``runtime/pipeline.py``, the
+reference's thread topology; it takes precedence over ``async_tracking``):
+the caller's thread extracts and feeds a bounded tracking queue and
+``track_*`` returns None; a tracking thread runs every camera's state
+machine; a mapping thread runs the mapper's jobs (at a lower budget while
+keyframes wait), loop closing and the periodic global BA on a map snapshot,
+which the tracker adopts at its next frame boundary. Rows are in
+``_pipe.telemetry`` and the trackers'; ``flush()`` drains both stages.
 
-Not ported yet, raising NotImplementedError that names its ROADMAP step:
-the threaded pipeline (``pipelined=True``, step 19). Every ``track_*``
-entry takes
+The system lives on ``config.device``; with none given it takes the current
+CUDA card and raises where there is none. All its threads launch on the
+device's current stream. Every ``track_*`` entry takes
 ``sensor_data`` (a ``core.sensordata.SensorData``: GPS, IMU orientation,
 pressure depth), which rides the frame to its keyframe and feeds local BA's
 pose priors under the weights of ``config.optimizer``. With
-``run_data_dir`` set the TSV logs are written; the periodic annotated frame
-dumps need ``viz/`` (step 19) and are not.
+``run_data_dir`` set the TSV logs are written (not in async mode) and an
+annotated feature image every 20th frame (``viz/``, not in async mode).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Dict
 
@@ -78,6 +84,8 @@ from hyslam_tpu_torch.slam.loop_closing import LoopCloser
 from hyslam_tpu_torch.slam.sparsify import sparsify_map
 from hyslam_tpu_torch.slam.tracker import State, Tracker
 from hyslam_tpu_torch.utils.telemetry import MappingLog, StageTimer, TrackingLog
+from hyslam_tpu_torch.viz.draw2d import write_png
+from hyslam_tpu_torch.viz.frame_drawer import draw_frame
 
 
 VOCAB_TRAIN_KFS = 4   # the loop closer is built once the map holds this many keyframes
@@ -91,13 +99,6 @@ def default_vocab_path():
     return p if os.path.exists(p) else None
 
 
-def _unported(config: SystemConfig) -> None:
-    """Raise for every option of the config that this port does not serve."""
-    if config.pipelined:
-        raise NotImplementedError(
-            "the threaded pipeline (pipelined=True) is ROADMAP step 19")
-
-
 class System:
     """One SLAM system over a stereo, RGB-D or monocular camera, or over a
     SLAM camera and an Imaging camera, built from a ``SystemConfig``. Feed
@@ -105,14 +106,13 @@ class System:
     ``track_rgbd`` / ``track_monocular`` (or features with
     ``track_features``), call ``flush()`` before reading
     its trackers or stopping a clock, and ``shutdown()`` at the end. With
-    ``config.run_data_dir`` set it writes the TSV telemetry logs
-    (synchronous mode); the annotated frame dumps are not written (they
-    need ``viz/``, ROADMAP step 19). What it does not serve raises
-    NotImplementedError, see the module docstring."""
+    ``config.run_data_dir`` set it writes the TSV telemetry logs and the
+    annotated frame dumps (not in async mode). With ``config.pipelined``
+    the frames go through the threaded pipeline, see the module
+    docstring."""
 
     def __init__(self, config: SystemConfig | None = None):
         self.config = config or SystemConfig()
-        _unported(self.config)
         self.device = (torch.device(self.config.device)
                        if self.config.device is not None else default_device())
         self.trackers: Dict[str, Tracker] = {}
@@ -134,6 +134,16 @@ class System:
             self.cameras[name] = cc.camera()
             self._families[name] = make_family(cc.extractor)
             self.trackers[name] = self._make_tracker(name)
+        self._pipe = self._make_pipe()
+
+    def _make_pipe(self):
+        """The threaded pipeline over the current trackers where the config
+        asks for it, else None."""
+        if not self.config.pipelined:
+            return None
+        from hyslam_tpu_torch.runtime.pipeline import SystemPipeline
+
+        return SystemPipeline(self)
 
     def _make_tracker(self, name: str) -> Tracker:
         """The camera's tracker, as the config describes it (for __init__
@@ -160,11 +170,15 @@ class System:
         return tracker
 
     def flush(self):
-        """Async mode: commit every frame in flight and run the map
-        maintenance of the keyframes they made, then wait until the device
-        has finished all queued work (use before reading trackers or maps
-        mid-run, and before stopping a clock). In synchronous mode only the
-        wait."""
+        """Pipelined mode: wait until both pipeline stages are empty and
+        idle and every map snapshot is adopted (a thread's exception is
+        raised here). Async mode: commit every frame in flight and run the
+        map maintenance of the keyframes they made. Then wait until the
+        device has finished all queued work (use before reading trackers or
+        maps mid-run, and before stopping a clock). In synchronous mode only
+        the wait."""
+        if self._pipe is not None:
+            self._pipe.drain_all()
         for name, t in self.trackers.items():
             t.drain_pending()
             self._maintain_pending(name)
@@ -172,6 +186,12 @@ class System:
             torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------ input
+
+    def _host_turn(self):
+        """Pipelined mode: the pipeline's turn for the caller's extraction
+        (``runtime.pipeline.Turns``); else nothing to wait for."""
+        return (self._pipe.turns.hold() if self._pipe is not None
+                else contextlib.nullcontext())
 
     def _image(self, img, scale: float) -> torch.Tensor:
         """A numpy image (or a tensor, which is not copied when it already
@@ -189,13 +209,15 @@ class System:
         made from this frame."""
         cc = self.config.cameras[camera]
         cam = self.cameras[camera]
-        il = self._image(img_left, cam.scale)
-        ir = self._image(img_right, cam.scale)
-        feats2 = self._families[camera].extract_batch(
-            torch.stack([il, ir]), capacity=self._capacity(cc))
-        fl = FrameFeatures(*(x[0] for x in feats2))
-        fr = FrameFeatures(*(x[1] for x in feats2))
-        fl = match_stereo_refined(fl, fr, il, ir, bf=cam.bf)
+        with self._host_turn():
+            il = self._image(img_left, cam.scale)
+            ir = self._image(img_right, cam.scale)
+            feats2 = self._families[camera].extract_batch(
+                torch.stack([il, ir]), capacity=self._capacity(cc))
+            fl = FrameFeatures(*(x[0] for x in feats2))
+            fr = FrameFeatures(*(x[1] for x in feats2))
+            fl = match_stereo_refined(fl, fr, il, ir, bf=cam.bf)
+            self._maybe_dump_frame(camera, il, fl)
         return self.track_features(fl, timestamp, camera, frame_id, sensor_data)
 
     def track_rgbd(self, img, depth, timestamp: float, camera: str = "SLAM",
@@ -209,23 +231,25 @@ class System:
         non-finite = no reading) at the image's native resolution."""
         cc = self.config.cameras[camera]
         cam = self.cameras[camera]
-        gray = self._image(img, cam.scale)
-        feats = self._families[camera].extract(gray, capacity=self._capacity(cc))
-        if not isinstance(depth, torch.Tensor):
-            depth = torch.from_numpy(np.ascontiguousarray(depth))
-        dep = depth.to(device=self.device, dtype=torch.float32)
-        H0, W0 = dep.shape
-        uv0 = feats.uv / cam.scale            # native-resolution coordinates
-        ui = torch.round(uv0[:, 0]).to(torch.int64).clamp(0, W0 - 1)
-        vi = torch.round(uv0[:, 1]).to(torch.int64).clamp(0, H0 - 1)
-        z = dep[vi, ui]
-        ok = feats.valid & torch.isfinite(z) & (z > 0.05)
-        # a true division: a Python number over a tensor would multiply by
-        # the tensor's reciprocal, one rounding more
-        disparity = torch.full_like(z, cam.bf) / torch.clamp_min(z, 1e-6)
-        feats = feats._replace(
-            ur=torch.where(ok, feats.uv[:, 0] - disparity, -1.0),
-            depth=torch.where(ok, z, -1.0))
+        with self._host_turn():
+            gray = self._image(img, cam.scale)
+            feats = self._families[camera].extract(gray, capacity=self._capacity(cc))
+            if not isinstance(depth, torch.Tensor):
+                depth = torch.from_numpy(np.ascontiguousarray(depth))
+            dep = depth.to(device=self.device, dtype=torch.float32)
+            H0, W0 = dep.shape
+            uv0 = feats.uv / cam.scale            # native-resolution coordinates
+            ui = torch.round(uv0[:, 0]).to(torch.int64).clamp(0, W0 - 1)
+            vi = torch.round(uv0[:, 1]).to(torch.int64).clamp(0, H0 - 1)
+            z = dep[vi, ui]
+            ok = feats.valid & torch.isfinite(z) & (z > 0.05)
+            # a true division: a Python number over a tensor would multiply by
+            # the tensor's reciprocal, one rounding more
+            disparity = torch.full_like(z, cam.bf) / torch.clamp_min(z, 1e-6)
+            feats = feats._replace(
+                ur=torch.where(ok, feats.uv[:, 0] - disparity, -1.0),
+                depth=torch.where(ok, z, -1.0))
+            self._maybe_dump_frame(camera, gray, feats)
         return self.track_features(feats, timestamp, camera, frame_id, sensor_data)
 
     def track_monocular(self, img, timestamp: float, camera: str = "SLAM",
@@ -234,11 +258,13 @@ class System:
         tracker initializes, the extractor takes ``init_feature_factor``
         times the features (capped at the arena's F)."""
         cc = self.config.cameras[camera]
-        gray = self._image(img, self.cameras[camera].scale)
-        fam = self._families[camera]
-        if self.trackers[camera].state == State.INITIALIZE and cc.init_feature_factor > 1:
-            fam = self._init_family(camera)
-        feats = fam.extract(gray, capacity=self._capacity(cc))
+        with self._host_turn():
+            gray = self._image(img, self.cameras[camera].scale)
+            fam = self._families[camera]
+            if self.trackers[camera].state == State.INITIALIZE and cc.init_feature_factor > 1:
+                fam = self._init_family(camera)
+            feats = fam.extract(gray, capacity=self._capacity(cc))
+            self._maybe_dump_frame(camera, gray, feats)
         return self.track_features(feats, timestamp, camera, frame_id, sensor_data)
 
     def track_features(self, feats: FrameFeatures, timestamp: float,
@@ -246,12 +272,18 @@ class System:
                        sensor_data=None):
         """Feature-level entry (features on the system's device). Returns
         the frame's TrackerTelemetry; in async mode None while the frame is
-        in flight (its row appears in the tracker's telemetry at commit)."""
+        in flight (its row appears in the tracker's telemetry at commit); in
+        pipelined mode None: the frame is queued to the tracking thread
+        (blocking while the queue holds 2) and its row appears in
+        ``_pipe.telemetry`` once tracked."""
         if self._shutdown:
             raise RuntimeError("System is shut down")
         if frame_id is None:
             frame_id = self._frame_counter
         self._frame_counter += 1
+        if self._pipe is not None:
+            self._pipe.feed(camera, feats, timestamp, frame_id, sensor_data)
+            return None
         if self.config.async_tracking:
             tel = self.trackers[camera].track_async(feats, timestamp, frame_id,
                                                     sensor_data=sensor_data)
@@ -260,14 +292,15 @@ class System:
             self._maintain_pending(camera)
             self._transition_states()
             return tel
-        tel = self._track_features_inline(feats, timestamp, camera, frame_id,
-                                          sensor_data)
-        self._transition_states()
-        return tel
+        return self._track_features_inline(feats, timestamp, camera, frame_id,
+                                           sensor_data)
 
     def _track_features_inline(self, feats, timestamp, camera, frame_id,
-                               sensor_data=None):
-        """One frame through the state machine, and its telemetry rows."""
+                               sensor_data=None, defer_maintenance=False):
+        """One frame through the state machine, its telemetry rows and the
+        cameras' state coupling. With ``defer_maintenance`` (the pipeline's
+        tracking thread) the map maintenance of a keyframe is left to the
+        mapping thread."""
         tracker = self.trackers[camera]
         tel = tracker.track(feats, timestamp, frame_id, sensor_data=sensor_data)
         if self._tracking_log is not None:
@@ -281,7 +314,9 @@ class System:
         if tel.kf_inserted >= 0:
             if self._mapping_log is not None and tel.mapper_stats:
                 self._mapping_log.log(camera, tel.kf_inserted, tel.mapper_stats)
-            self._on_new_keyframe(camera, tel.kf_inserted)
+            if not defer_maintenance:
+                self._on_new_keyframe(camera, tel.kf_inserted)
+        self._transition_states()
         return tel
 
     def _transition_states(self):
@@ -316,72 +351,88 @@ class System:
             self._on_new_keyframe(camera, pending.pop(0))
 
     def _on_new_keyframe(self, camera: str, kf_id: int):
-        if self._maintain_map(camera, kf_id):
+        tracker = self.trackers[camera]
+        tracker.ms, moved = self._maintain_map(camera, tracker.ms, kf_id)
+        if moved:
             self._refresh_trajectory(camera)
 
-    def _maintain_map(self, camera: str, kf_id: int) -> bool:
-        """The map maintenance after keyframe kf_id: loop closing (with a
-        global BA of 10 iterations after a closure), and in the offline mode
-        (``optimizer.realtime=False``) a global BA every ``gba_interval``
-        keyframes. In async mode the frames in flight are committed before
-        the map is changed: the global BA then holds every keyframe made so
-        far, and no frame is left in flight with a pose of the map before it.
-        Returns whether the map moved."""
+    def _commit_in_flight(self, camera: str, ms, live: bool):
+        """The map to change: where ``live`` and the camera's tracker has
+        async frames in flight, they are committed first and the map they
+        leave is returned (the map then holds every keyframe made so far,
+        and no frame is left in flight with a pose of the map before it);
+        else ms. Returns (the map, whether frames were committed)."""
+        tracker = self.trackers[camera]
+        if not (live and tracker._pending):
+            return ms, False
+        tracker.drain_pending()
+        return tracker.ms, True
+
+    def _maintain_map(self, camera: str, ms, kf_id: int, live: bool = True,
+                      sensors=None):
+        """The map maintenance after keyframe kf_id on the map ms: loop
+        closing (with a global BA of 10 iterations after a closure), and in
+        the offline mode (``optimizer.realtime=False``) a global BA every
+        ``gba_interval`` keyframes. ``live``: ms is the tracker's own map,
+        and async frames in flight are committed before it is changed; the
+        pipeline's mapping thread passes a snapshot with ``live=False`` and
+        the tracker is not touched, but for the recognizer that a newly built
+        loop closer hands it, and global BA takes ``sensors``, the arena the
+        keyframe's job carries (None: the tracker's). Returns (ms, whether
+        the map moved)."""
         moved = False
         if self.config.enable_loop_closing and camera == "SLAM":
-            closer = self._get_loop_closer(camera)
+            closer = self._get_loop_closer(camera, ms)
             if closer is not None:
-                moved = self._close_loop(camera, closer, kf_id)
+                ms, moved = self._close_loop(camera, closer, ms, kf_id, live, sensors)
         self._kfs_since_gba += 1
         opt = self.config.optimizer
         if opt.realtime or self._kfs_since_gba < opt.gba_interval:
-            return moved
-        tracker = self.trackers[camera]
-        tracker.drain_pending()
-        self._global_ba(camera)
+            return ms, moved
+        ms = self._global_ba(camera, self._commit_in_flight(camera, ms, live)[0], sensors)
         self._kfs_since_gba = 0
-        return True
+        return ms, True
 
-    def _global_ba(self, camera: str, **kw):
-        tracker = self.trackers[camera]
+    def _global_ba(self, camera: str, ms, sensors=None, **kw):
         ex = self.config.cameras[camera].extractor
-        tracker.ms, _ = run_global_ba(
-            tracker.ms, self.cameras[camera], sensors=tracker.sensors,
+        if sensors is None:
+            sensors = self.trackers[camera].sensors
+        ms, _ = run_global_ba(
+            ms, self.cameras[camera], sensors=sensors,
             opt_info=self.config.optimizer, n_levels=ex.n_levels,
             scale_factor=ex.scale_factor, **kw)
+        return ms
 
-    def _close_loop(self, camera: str, closer: LoopCloser, kf_id: int) -> bool:
-        """Detection and verification of keyframe kf_id; on a loop, the
+    def _close_loop(self, camera: str, closer: LoopCloser, ms, kf_id: int,
+                    live: bool, sensors=None):
+        """Detection and verification of keyframe kf_id on ms; on a loop, the
         correction and the global BA. In async mode frames in flight are
         committed first and the loop verified again on the map they leave
         (the same RANSAC draws), so that no loop is applied to a map other
-        than the one it was verified on. Returns whether a loop closed."""
-        tracker = self.trackers[camera]
-        found, cand, g_cl, _ = closer.detect_and_verify(tracker.ms, kf_id)
+        than the one it was verified on. Returns (ms, whether a loop
+        closed)."""
+        found, cand, g_cl, _ = closer.detect_and_verify(ms, kf_id)
         if not found:
-            return False
-        if tracker._pending:
-            tracker.drain_pending()
-            found, g_cl, _ = closer.compute_sim3(tracker.ms, kf_id, cand)
+            return ms, False
+        ms, committed = self._commit_in_flight(camera, ms, live)
+        if committed:
+            found, g_cl, _ = closer.compute_sim3(ms, kf_id, cand)
             if not found:
-                return False
-        ms, applied = closer.correct(tracker.ms, kf_id, cand, g_cl)
+                return ms, False
+        corrected, applied = closer.correct(ms, kf_id, cand, g_cl)
         if not applied:
-            return False
+            return ms, False
         closer.n_closed += 1
-        tracker.ms = ms
-        self._global_ba(camera, n_iters=10)
-        return True
+        return self._global_ba(camera, corrected, sensors, n_iters=10), True
 
-    def _get_loop_closer(self, camera: str):
-        """The camera's loop closer, built once the map holds
+    def _get_loop_closer(self, camera: str, ms):
+        """The camera's loop closer, built once the map ms holds
         VOCAB_TRAIN_KFS keyframes (None before), its recognizer back-filled
         with every keyframe so far and handed to the tracker for
         relocalization."""
         if camera in self.loop_closers:
             return self.loop_closers[camera]
         tracker = self.trackers[camera]
-        ms = tracker.ms
         n_kf = int(ms.next_kf)
         if n_kf < VOCAB_TRAIN_KFS:
             return None
@@ -541,19 +592,34 @@ class System:
             self._mapping_log = None
 
     def shutdown(self):
-        """Close the telemetry logs and refuse further input."""
+        """Drain and join the pipeline's threads (pipelined mode; a thread's
+        exception is raised here), close the telemetry logs and refuse
+        further input."""
         self._shutdown = True
-        self._close_logs()
+        try:
+            self._join_pipe()
+        finally:
+            self._close_logs()
 
     def reset(self):
-        """Fresh trackers, no loop closers, and reopened telemetry logs
-        (usable again after ``shutdown()``)."""
+        """Fresh trackers, no loop closers, reopened telemetry logs and, in
+        pipelined mode, a new pipeline (usable again after ``shutdown()``)."""
+        self._shutdown = True   # stays so where the old pipeline's join raises
+        self._join_pipe()
         for name in self.config.cameras:
             self.trackers[name] = self._make_tracker(name)
         self.loop_closers.clear()
         self._close_logs()
         self._open_logs()
+        self._pipe = self._make_pipe()
         self._shutdown = False
+
+    def _join_pipe(self):
+        """Join the pipeline's threads (what they hold is finished first)
+        and drop it; a thread's exception is raised."""
+        pipe, self._pipe = self._pipe, None
+        if pipe is not None:
+            pipe.join()
 
     # ------------------------------------------------------------------ misc
 
@@ -572,3 +638,22 @@ class System:
             n = min(cc.extractor.n_features * cc.init_feature_factor, self.config.caps.F)
             self._init_families[camera] = make_family(cc.extractor._replace(n_features=n))
         return self._init_families[camera]
+
+    def _maybe_dump_frame(self, camera: str, gray, feats, every: int = 20):
+        """With ``run_data_dir`` set, an annotated feature image every
+        ``every``-th frame of the System's counter (the reference's debug
+        dump, ImageProcessing.cpp:87-98): the image, the frame's keypoints,
+        and the tracker's state and map counts before the frame. Not in
+        async mode, where the reads it needs would stall the loop."""
+        if not self.config.run_data_dir or self.config.async_tracking:
+            return
+        if self._frame_counter % every != 0:
+            return
+        t = self.trackers[camera]
+        n_kfs, n_lm = torch.stack([
+            t.ms.next_kf, M.n_live_landmarks(t.ms).to(torch.int32)]).tolist()
+        img = draw_frame(gray.cpu().numpy(), feats.uv.cpu().numpy(),
+                         feats.valid.cpu().numpy(), state=t.state.name,
+                         n_kfs=n_kfs, n_landmarks=n_lm)
+        write_png(os.path.join(self.config.run_data_dir,
+                               f"features_{camera}_{self._frame_counter:06d}.png"), img)

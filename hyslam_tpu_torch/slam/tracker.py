@@ -28,8 +28,16 @@ injection).
 
 Relocalization ranks its candidates through ``recognizer``, the BoW place
 recognizer that ``System`` hands over once its loop closer exists (dense
-similarity before). Not ported yet, raising NotImplementedError where it
-would be entered: the threaded pipeline's ``mapping_status`` hook (step 19).
+similarity before).
+
+``mapping_status`` is the threaded pipeline's view of its mapping stage
+(``runtime/pipeline.py``): where it is set, ``idle()`` and ``queue_len()``
+feed the keyframe policy's mapping-idle gate, and ``sync(tracker)`` drains
+the mapping stage and adopts its map before an initialization or a keyframe
+insertion allocates keyframes, so that insertions form one chain (a keyframe
+inserted on a snapshot the mapper never saw would be lost at adoption), and
+``defer(ms, kf_id, maintenance_sensors, **kw)`` takes a new keyframe's mapper jobs in
+place of ``Mapper.integrate_keyframe``.
 """
 
 from __future__ import annotations
@@ -143,7 +151,9 @@ class Tracker:
                                   # busy) is estimated from it on the host
     on_keyframe: object = None    # async loop: callable(kf_id) after a
                                   # deferred keyframe insertion
-    mapping_status: object = None  # the threaded pipeline's hook: step 19
+    mapping_status: object = None  # the threaded pipeline's view of its
+                                   # mapping stage: idle(), queue_len(),
+                                   # sync(tracker), defer(); None: no pipeline
     mapper_params: MapperParams = field(default_factory=MapperParams)
     device: object = None         # where the map state lives (default: the card)
 
@@ -152,9 +162,6 @@ class Tracker:
         # field wins when set
         if not self.reset_interval and self.params.normal.reset_interval > 0:
             self.reset_interval = self.params.normal.reset_interval
-        if self.mapping_status is not None:
-            raise NotImplementedError(
-                "mapping_status is the threaded pipeline's hook, ROADMAP step 19")
         self.device = (torch.device(self.device) if self.device is not None
                        else default_device())
         self.ms: MapState = empty_map_state(self.caps, device=self.device)
@@ -227,7 +234,12 @@ class Tracker:
         ``as_submap`` in a new sub-map that is registered at once, tied to
         keyframe ``tie_kf``. On too little depth the map (a sub-map opened
         here included) stays as it was and so does the state. A monocular
-        tracker feeds the frame to its two-frame initializer instead."""
+        tracker feeds the frame to its two-frame initializer instead. Under
+        the threaded pipeline the mapping stage is drained and its map
+        adopted first: keyframes allocated on a stale snapshot would be
+        dropped at the next adoption."""
+        if self.mapping_status is not None:
+            self.mapping_status.sync(self)
         if self.is_mono:
             kf_id = self._mono_initialize(feats, timestamp, frame_id)
             if kf_id >= 0:
@@ -336,14 +348,22 @@ class Tracker:
         tr = TrackResult(Tcw=nf.Tcw, lm_id=nf.lm_id, n_inliers=n_inliers, ok=True)
         self.ref_kf = local_ref_kf
 
+        idle, qlen = True, 0
+        if self.mapping_status is not None:
+            idle = bool(self.mapping_status.idle())
+            qlen = int(self.mapping_status.queue_len())
         inp = KFDecisionInputs(
             n_inliers=n_inliers, frame_id=frame_id,
             last_kf_frame_id=self.last_kf_frame_id, n_kfs_in_map=n_kfs,
             n_tracked_close=n_tracked_close, n_nontracked_close=n_nontracked_close,
-            mapping_idle=True, mapping_queue_len=0, is_mono=self.is_mono,
+            mapping_idle=idle, mapping_queue_len=qlen, is_mono=self.is_mono,
             force=self.state == State.POSTINIT)
         kf_id = -1
         if need_new_keyframe(inp, self.policy):
+            if self.mapping_status is not None:
+                # drain the mapper and adopt its map, so that keyframe
+                # insertions form one chain
+                self.mapping_status.sync(self)
             kf_id = self._insert_keyframe(feats, tr, timestamp, frame_id, tel)
 
         # trajectory append, relative to the reference keyframe
@@ -373,10 +393,10 @@ class Tracker:
         if not self.is_mono:
             ms, n_seeded = seed_close_landmarks(ms, kf_id, self.cam)
             tel.n_seeded = int(n_seeded)
-        ms, tel.mapper_stats = self.mapper.integrate_keyframe(
-            ms, kf_id, sensors=self.sensors, opt_info=self.opt_info)
-        self.ms = ms
+        sensors = self.sensors      # the mapper's local BA: without this reading
         self._attach_sensor(kf_id, self._pending_sensor)
+        self.ms, tel.mapper_stats = self._integrate(ms, kf_id, sensors=sensors,
+                                                    opt_info=self.opt_info)
         self.last_kf_frame_id = frame_id
         self.ref_kf = kf_id
         tel.kf_inserted = kf_id
@@ -515,14 +535,19 @@ class Tracker:
             if self.postinit_left <= 0:
                 self.state = State.NORMAL
 
-        # mapper occupancy, estimated from the last insertion: its work is
-        # taken to last mapper_busy_frames frames
-        busy = p.frame_id < self.last_kf_frame_id + self.mapper_busy_frames
+        if self.mapping_status is not None:
+            idle = bool(self.mapping_status.idle())
+            qlen = int(self.mapping_status.queue_len())
+        else:
+            # mapper occupancy, estimated from the last insertion: its work
+            # is taken to last mapper_busy_frames frames
+            busy = p.frame_id < self.last_kf_frame_id + self.mapper_busy_frames
+            idle, qlen = not busy, int(busy)
         inp = KFDecisionInputs(
             n_inliers=s[2], frame_id=p.frame_id,
             last_kf_frame_id=self.last_kf_frame_id, n_kfs_in_map=s[7],
             n_tracked_close=s[4], n_nontracked_close=s[5],
-            mapping_idle=not busy, mapping_queue_len=int(busy), is_mono=self.is_mono,
+            mapping_idle=idle, mapping_queue_len=qlen, is_mono=self.is_mono,
             force=p.force_kf)
         # arena-full guard: the cursor only grows, and an insert past K
         # would clamp in the arena while the host mirror ran on
@@ -543,7 +568,7 @@ class Tracker:
             ms, _ = seed_close_landmarks(ms, kf_id, self.cam)
         self._kf_mirror += 1
         self._attach_sensor(kf_id, p.sensor_data)
-        ms, stats = self.mapper.integrate_keyframe(
+        ms, stats = self._integrate(
             ms, kf_id, sensors=self.sensors, opt_info=self.opt_info,
             fetch_stats=False, has_priors=self._has_priors)
         self.ms = ms
@@ -552,6 +577,16 @@ class Tracker:
         tel.mapper_stats = stats
         if self.on_keyframe is not None:
             self.on_keyframe(kf_id)
+
+    def _integrate(self, ms, kf_id: int, **kw):
+        """The mapper's jobs on new keyframe kf_id (``kw`` for
+        ``Mapper.integrate_keyframe``): run here, or under the threaded
+        pipeline handed to its mapping thread with the sensor readings as
+        they stand now, the keyframe's own included, for the map maintenance
+        there. Returns (ms, stats)."""
+        if self.mapping_status is None:
+            return self.mapper.integrate_keyframe(ms, kf_id, **kw)
+        return self.mapping_status.defer(ms, kf_id, self.sensors, **kw)
 
     def _lose_tracking(self):
         """Transition on loss: a stereo camera re-initializes in a registered
@@ -564,7 +599,11 @@ class Tracker:
         fresh private sub-map, so that the map before keeps its single origin
         and gauge. The sub-map stays unregistered, no pose relation to the
         parent being known yet, until imaging BA aligns and registers it
-        (ROADMAP step 17); until then global BA holds its origin fixed."""
+        (ROADMAP step 17); until then global BA holds its origin fixed.
+        Under the threaded pipeline the mapping stage is drained and its map
+        adopted first, so that the adoption cannot drop the new sub-map."""
+        if self.mapping_status is not None:
+            self.mapping_status.sync(self)
         self.state = State.INITIALIZE
         if self._mono_init is not None:
             self._mono_init.ref = None   # the frame from before the loss is stale

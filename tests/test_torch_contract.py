@@ -55,7 +55,10 @@ SLICE_MODULES = [
     "hyslam_tpu_torch.slam.global_ba", "hyslam_tpu_torch.features.bow",
     "hyslam_tpu_torch.features.vocab_io", "hyslam_tpu_torch.estimators.sim3_solver",
     "hyslam_tpu_torch.solver.sim3_opt", "hyslam_tpu_torch.solver.pose_graph",
-    "hyslam_tpu_torch.slam.loop_closing",
+    "hyslam_tpu_torch.slam.loop_closing", "hyslam_tpu_torch.runtime.native",
+    "hyslam_tpu_torch.runtime.pipeline", "hyslam_tpu_torch.viz.draw2d",
+    "hyslam_tpu_torch.viz.frame_drawer", "hyslam_tpu_torch.viz.map_drawer",
+    "hyslam_tpu_torch.viz.viewer", "hyslam_tpu_torch.viz",
 ]
 
 
@@ -357,8 +360,10 @@ def test_unported_paths_raise():
         interop.desc_to_torch(q), torch.ones(16, dtype=torch.bool), torch.from_numpy(covis))
     # the empty map's frame: the recognizer ranks; no candidate has landmarks
     assert mono.track(empty_features(16), 0.1, 1).state == "RELOCALIZE"
-    with pytest.raises(NotImplementedError, match="step 19"):
-        tracker.Tracker(cam=SMALL_CAM, caps=caps, mapping_status=object(), device="cpu")
+    # the threaded pipeline's hook is accepted (runtime/pipeline.py sets it)
+    hook = object()
+    assert tracker.Tracker(cam=SMALL_CAM, caps=caps, mapping_status=hook,
+                           device="cpu").mapping_status is hook
     assert tracker.Tracker(cam=SMALL_CAM, caps=caps, reset_interval=15,
                            device="cpu").reset_interval == 15
     from_params = tracker.Tracker(cam=SMALL_CAM, caps=caps, params=TrackingParams(

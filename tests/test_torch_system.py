@@ -214,12 +214,25 @@ def _cfg(**kw):
     return SystemConfig(**kw)
 
 
-@pytest.mark.parametrize("kw,step", [
-    (dict(pipelined=True), "step 19"),
-])
-def test_unported_config_options_raise(kw, step):
-    with pytest.raises(NotImplementedError, match=step):
-        System(_cfg(**kw))
+@pytest.mark.parametrize("kw", [dict(pipelined=True),
+                                dict(pipelined=True, async_tracking=True)])
+def test_unported_config_options_raise(kw, monkeypatch):
+    """The option this test once held to raise, the threaded pipeline, is
+    ported: the System builds its pipeline (which takes precedence over
+    async_tracking), hooks every tracker to it, tracks through it, and
+    stops it at shutdown (each wait bounded by 60 s)."""
+    from hyslam_tpu_torch.runtime import pipeline
+
+    monkeypatch.setattr(pipeline, "TIMEOUT_S", 60.0)
+    s = System(_cfg(**kw))
+    pipe = s._pipe
+    assert pipe is not None and s.trackers["SLAM"].mapping_status._pipe is pipe
+    assert s.track_features(empty_features(1024), 0.0) is None
+    s.flush()
+    assert [t.state for t in pipe.telemetry] == ["INITIALIZE"]
+    assert s.trackers["SLAM"].telemetry == pipe.telemetry
+    s.shutdown()
+    assert s._pipe is None and not any(t.is_alive() for t in pipe._threads)
 
 
 @pytest.mark.parametrize("kw", [dict(optimizer=OptimizerInfo(realtime=False)),
