@@ -2,7 +2,8 @@
 """Drive the PyTorch port's stereo front end, tracker and System on one CUDA card,
 through a loss of tracking, with sensor readings, with a monocular camera,
 with periodic global BA, with loop closing, with a second (Imaging) camera,
-with the SURF feature family and through the threaded pipeline.
+with the SURF feature family and through the threaded pipeline; then its
+sharded solvers over several ranks.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card and
 the CUDA toolkit:
@@ -226,6 +227,30 @@ It exits non-zero, printing no result, where CUDA is not available. Phases:
    thread's exception reaches the script through ``flush`` or
    ``shutdown`` and fails it.
 
+11. The sharded solvers over ``torch.distributed`` (``hyslam_tpu_torch/parallel``),
+   on the one card: one spawn of 4 ranks on gloo (NCCL refuses two ranks on
+   one card), then one spawn of 1 rank on NCCL; every process group with a
+   timeout, and a rank's exception or overrun fails the script. *11a*:
+   ``distributed_bundle_adjustment`` on bench_multihost.py's problem (K =
+   64, L = 65536, O = 8; tools/bench_multihost_torch.py draws it), dense
+   (10 LM iterations) and CG (3), on 2 and 4 gloo ranks and the 1 NCCL
+   rank, against the single-rank ``bundle_adjustment`` on the card with
+   tests/test_parallel.py's bounds (every pose within 0.05 deg and 0.01,
+   cost within 10% + 5), the NCCL rank to a bound set from its readings,
+   and every rank returning the same result. *11b*:
+   ``distributed_bundle_adjustment_2d`` on kf 2 x lm 2 with GPS and
+   tiepoint priors against the single-rank CG solve. *11c*:
+   ``distributed_pose_graph`` on 2 ranks (a drifted 64-keyframe Sim3 chain
+   with a loop) against ``optimize_pose_graph``. *11d*:
+   ``extract_cameras_sharded`` on 2 ranks, 4 cameras at 1280x720, ORB 1000
+   x 8: the gathered features the bits of ``extract_atlas_batch`` over the
+   whole batch. *11e*: ``run_global_ba(mesh=)`` on 2 ranks on the map 6a's
+   sync run saved, which each rank loads with ``load_map_state`` and no
+   device (the card), against ``run_global_ba`` in this process. A ``phase
+   11 timing:`` line: each solve synchronised, the single-rank ones, the
+   spawns, and one all_reduce of a [K,6] on each group: timings on one
+   shared card, not scaling figures. Phase 11 launches no K1.
+
 Prints the card line, one JSON line of kernel results (with the kernel's
 time: its bound and what sets it, its fixed part and its time an
 iteration), and last
@@ -337,7 +362,7 @@ MAX_RELOC_DELAY = 3           # frames from the blackout's end to >RELOC_OK
 # worst frame is the initialization's second frame, 0.183642 m
 MAX_ATE_MONO, MAX_T_MONO = 0.13, 0.28
 K_BIG, N_BIG = 512, 10
-N_ITERS_BIG = 5               # LM iterations of 7d's global BA, CG and dense alike
+N_ITERS_BIG = 3               # LM iterations of 7d's global BA, CG and dense alike
 # phase 8: loop closing through the System on tests/test_async_tracking.py's
 # circuit scaled to this camera: N_CIRCLE frames around a circle (0.5 m and
 # 2 pi / N_CIRCLE of yaw a frame), N_REVISIT more over its start, N_CIRCLE x
@@ -380,6 +405,25 @@ MAX_SURF_BIT_FRACTION = 0.005
 # sync run to phase 4's.
 DUMP_FRAMES = (0, 20, 40)
 N_BLACKOUT10, GBA_EVERY_10B, N_AFTER_RESET = 40, 8, 10
+
+# phase 11: bench_multihost's problem (BENCH_ba_scaling.json's first row),
+# its LM iterations, 4 gloo ranks on the one card, then 1 NCCL rank; the
+# map 6a's sync run leaves, for 11e; each spawn's and process group's limit
+BA11 = (64, 65536, 8)
+N_ITERS11, N_ITERS11_CG = 10, 3    # LM iterations: dense; CG and 2-D (200 all_reduces each)
+RANKS11 = 4
+ITERS11 = {"dense": N_ITERS11, "cg": N_ITERS11_CG}
+MAP6A = os.path.join("build", "chip_smoke", "map6a.npz")
+RANK_TIMEOUT_S = 300
+PG_K11 = 64                   # 11c: keyframes of the pose graph's chain
+CAMS11 = 4                    # 11d: cameras a batch, 2 a rank
+# the NCCL rank against the single-rank solve, set from readings on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md): CG 0 apart; dense 1.9e-5 in
+# pose and 3.0e-7 in cost, since
+# the dense Schur's index_add_ adds a landmark's two observations in one
+# keyframe in an order that changes from run to run (bench_multihost's
+# problem draws a landmark's keyframes with repeats)
+MAX_NCCL_POSE, MAX_NCCL_COST_RTOL = 1e-4, 2e-6
 
 
 def log(msg: str) -> None:
@@ -1291,6 +1335,7 @@ def phase6(cam, cfg, poses, pairs, tracked, async_lines5):
 
     from hyslam_tpu_torch.core.sensordata import SensorData
     from hyslam_tpu_torch.io.config import OptimizerInfo
+    from hyslam_tpu_torch.io.export import save_map_state
     from hyslam_tpu_torch.ops.pose_opt_cuda import pose_optimization_cuda
     from hyslam_tpu_torch.slam import global_ba
     from hyslam_tpu_torch.slam import mapper as mapper_mod
@@ -1447,6 +1492,8 @@ def phase6(cam, cfg, poses, pairs, tracked, async_lines5):
             run_global_ba
     total += launches
     check_blackout("sync", tr, launches)
+    os.makedirs(os.path.dirname(MAP6A), exist_ok=True)
+    save_map_state(MAP6A, tr.ms)                  # phase 11e's map
     log(f"phase 6a sync: the tiepoint edge lay in local BA's window on {sum(held['tie'])} of "
         f"{len(held['tie'])} prior-path jobs")
     gate("6a sync: every prior-path job asked for the window's priors",
@@ -2685,6 +2732,338 @@ def phase10(cam, cfg, poses, pairs, timing5=None):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the sharded solvers over torch.distributed ranks on the one card
+# ---------------------------------------------------------------------------
+
+def _pose_graph11(K: int):
+    """A drifted Sim3 chain of K keyframes with its odometry edges, edges
+    two apart and one exact loop edge (tests/test_dist_pose_graph.py's loop
+    problem, longer): (g_true, g_est, fixed, ei, ej, meas, valid) as numpy."""
+    from hyslam_tpu_torch.geometry import sim3
+
+    step = sim3.exp(torch.tensor([0.0, 0.0, 0.5, 0.0, 0.4, 0.0, 0.0]))
+    drift = sim3.exp(torch.tensor([0.0, 0.0, 0.015, 0.0, 0.02, 0.0, 0.0]))
+    g_true = [sim3.identity()]
+    for _ in range(K - 1):
+        g_true.append(sim3.compose(step, g_true[-1]))
+
+    def rel(i, j):
+        return sim3.compose(g_true[j], sim3.inverse(g_true[i]))
+
+    g_est = [g_true[0]]
+    for k in range(1, K):
+        g_est.append(sim3.compose(drift, sim3.compose(rel(k - 1, k), g_est[-1])))
+    edges = [(k - 1, k) for k in range(1, K)] + [(k - 2, k) for k in range(2, K)] \
+        + [(0, K - 1)]
+    if len(edges) % 2:
+        edges.append((0, 0))                    # a padding edge, invalid
+    valid = np.arange(len(edges)) < (2 * K - 2)
+    meas = torch.stack([rel(i, j) if v else sim3.identity()
+                        for (i, j), v in zip(edges, valid)])
+    ei, ej = (np.asarray(c, np.int32) for c in zip(*edges))
+    return (torch.stack(g_true).numpy(), torch.stack(g_est).numpy(), np.arange(K) == 0,
+            ei, ej, meas.numpy(), valid)
+
+
+def _priors11(p):
+    """GPS fixes of every second keyframe's true centre (information 25)
+    and one tiepoint edge between slots 1 and 6 (tests/test_parallel.py's
+    priors) on bench_multihost's problem, whose poses are its truth."""
+    from hyslam_tpu_torch.solver.priors import empty_pose_priors
+
+    K = p.kf_Tcw.shape[0]
+    T = p.kf_Tcw.double()
+    centers = -torch.einsum("kji,kj->ki", T[:, :3, :3], T[:, :3, 3]).float()
+    return empty_pose_priors(K, E=1)._replace(
+        gps_pos=centers, gps_info=torch.full((K, 3), 25.0),
+        gps_valid=torch.arange(K) % 2 == 0,
+        tie_a=torch.tensor([1], dtype=torch.int32), tie_b=torch.tensor([6], dtype=torch.int32),
+        tie_T=(T[6] @ torch.linalg.inv(T[1])).float()[None],
+        tie_info=torch.tensor([100.0]), tie_valid=torch.tensor([True]))
+
+
+def _timed11(fn):
+    """(result, ms) of fn, the card synchronised before and after (a CPU
+    rehearsal has none to synchronise)."""
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
+    t = time.perf_counter()
+    out = fn()
+    sync()
+    return out, 1e3 * (time.perf_counter() - t)
+
+
+def _ba_out(res, keep_all: bool) -> dict:
+    import zlib
+
+    lm = res.lm_pos.cpu().numpy()
+    inl = res.obs_inlier.cpu().numpy()
+    out = {"Tcw": res.kf_Tcw.cpu().numpy(), "cost": float(res.cost),
+           "crc": zlib.crc32(lm.tobytes() + inl.tobytes() + res.obs_chi2.cpu().numpy().tobytes()),
+           "n_inliers": int(inl.sum())}
+    if keep_all:
+        out.update(lm=lm, inlier=inl)
+    return out
+
+
+def _ranks11(rank: int, world: int, backend: str, tag: str, folder: str, device) -> None:
+    """One rank of phase 11's spawn ``tag``: a world of 4 (gloo) runs
+    11a-11e, a world of 1 (NCCL) runs 11a. ``device`` None: rank r on
+    cuda:{r % device_count}. Writes rank{rank}_{tag}.pkl."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from hyslam_tpu_torch import interop
+    from hyslam_tpu_torch.features.extractor import ExtractorConfig
+    from hyslam_tpu_torch.io.export import load_map_state
+    from hyslam_tpu_torch.parallel import launch
+    from hyslam_tpu_torch.parallel.dist_ba import (
+        distributed_bundle_adjustment,
+        distributed_bundle_adjustment_2d,
+    )
+    from hyslam_tpu_torch.parallel.dist_pose_graph import distributed_pose_graph
+    from hyslam_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+    from hyslam_tpu_torch.solver.ba import psum
+    from hyslam_tpu_torch.parallel.multicam import extract_cameras_sharded
+    from hyslam_tpu_torch.slam.global_ba import run_global_ba
+
+    launch.init_rank(rank, world, f"file://{folder}/rendezvous_{tag}", backend,
+                     RANK_TIMEOUT_S)
+    out = {"device": None}
+    try:
+        with open(os.path.join(folder, "inputs.pkl"), "rb") as f:
+            inp = pickle.load(f)
+        p = interop.ba_problem_from_numpy(inp["ba"])
+        mesh_all = make_mesh(device=device)
+        meshes = [("all", mesh_all)]
+        if world > 1:
+            meshes = [("2", make_mesh(2, device=device)), ("4", mesh_all)]
+            mesh2d = make_mesh_2d(kf=2, device=device)
+        out["device"] = str(mesh_all.device)
+        if mesh_all.device.type == "cuda":
+            torch.cuda.set_device(mesh_all.device)
+        distributed_bundle_adjustment(p, mesh_all, n_iters=1, solver="dense")   # warm
+        for solver in ("dense", "cg"):
+            for name, mesh in meshes:
+                dist.barrier()
+                if mesh.coords is None:
+                    continue
+                res, ms = _timed11(lambda: distributed_bundle_adjustment(
+                    p, mesh, n_iters=ITERS11[solver], solver=solver))
+                out[f"11a_{solver}_{name}"] = dict(_ba_out(res, rank == 0), ms=ms)
+        # what one all_reduce of a CG product's [K,6] costs on this group
+        for name, mesh in meshes:
+            dist.barrier()
+            if mesh.coords is None:
+                continue
+            x = torch.ones((p.kf_Tcw.shape[0], 6), device=mesh.device)
+            _, ms = _timed11(lambda: [psum(x, mesh.group("lm")) for _ in range(200)])
+            out[f"all_reduce_ms_{name}"] = ms / 200
+        if world == 1:
+            return
+        mesh2 = meshes[0][1]
+        dist.barrier()
+        p2 = p._replace(priors=interop.pose_priors_from_numpy(inp["priors"]))
+        res, ms = _timed11(lambda: distributed_bundle_adjustment_2d(p2, mesh2d,
+                                                                    n_iters=N_ITERS11_CG))
+        out["11b"] = dict(_ba_out(res, rank == 0), ms=ms)
+        dist.barrier()
+        if mesh2.coords is not None:
+            g = {k: torch.from_numpy(np.array(v)) for k, v in inp["pose_graph"].items()}
+            pg, ms = _timed11(lambda: distributed_pose_graph(
+                g["g"], g["fixed"], g["ei"], g["ej"], g["meas"], g["valid"], mesh2))
+            out["11c"] = dict(g=pg.cpu().numpy(), ms=ms)
+            imgs = torch.from_numpy(np.load(os.path.join(folder, "imgs.npy")))
+            cfg = ExtractorConfig(**inp["extract_cfg"])
+            extract_cameras_sharded(imgs, cfg, inp["capacity"], mesh2, gather=True)  # warm
+            feats, ms = _timed11(lambda: extract_cameras_sharded(
+                imgs, cfg, inp["capacity"], mesh2, gather=True))
+            out["11d"] = dict(feats={k: v.cpu().numpy() for k, v in feats._asdict().items()},
+                              ms=ms)
+            ms_map = load_map_state(inp["map"], device)    # None: the card
+            out["map_device"] = str(ms_map.kf.Tcw.device)
+            (ms2, cost), ms = _timed11(lambda: run_global_ba(ms_map, inp["cam"], mesh=mesh2))
+            out["11e"] = dict(Tcw=ms2.kf.Tcw.cpu().numpy(), pos=ms2.lm.pos.cpu().numpy(),
+                              cost=cost, ms=ms)
+        dist.barrier()
+    finally:
+        with open(os.path.join(folder, f"rank{rank}_{tag}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        dist.destroy_process_group()
+
+
+def phase11(cam, dev, rank_device=None, spawns=(("all", "gloo", RANKS11), ("one", "nccl", 1))):
+    """The sharded solvers over torch.distributed; see the module
+    docstring. Returns its timings. ``rank_device`` and ``spawns`` are for
+    a CPU rehearsal ("cpu", and gloo in place of NCCL)."""
+    import pickle
+    import tempfile
+
+    from hyslam_tpu_torch import interop
+    from hyslam_tpu_torch.features.atlas import extract_atlas_batch
+    from hyslam_tpu_torch.features.extractor import ExtractorConfig
+    from hyslam_tpu_torch.io.export import load_map_state
+    from hyslam_tpu_torch.parallel import launch
+    from hyslam_tpu_torch.slam.global_ba import run_global_ba
+    from hyslam_tpu_torch.solver.ba import bundle_adjustment
+    from hyslam_tpu_torch.solver.pose_graph import optimize_pose_graph
+    from hyslam_tpu_torch.utils import synth
+    from tools.bench_multihost_torch import build_problem
+
+    failed = []
+
+    def gate(name, ok):
+        log(f"phase 11 gate {'ok' if ok else 'FAILED'}: {name}")
+        if not ok:
+            failed.append(name)
+
+    K, L, O = BA11
+    problem = build_problem(K=K, L=L, O=O)
+    p = interop.ba_problem_from_numpy(problem, dev)
+    priors = _priors11(interop.ba_problem_from_numpy(problem))
+    g_true, g_est, fixed, ei, ej, meas, valid = _pose_graph11(PG_K11)
+    rng = np.random.default_rng(11)
+    world_pts = np.stack([rng.uniform(-14, 14, N_POINTS), rng.uniform(-9, 9, N_POINTS),
+                          rng.uniform(3, 45, N_POINTS)], -1).astype(np.float32)
+    imgs = np.stack([synth.render_world(cam, synth.se3_exp([0.0, 0.1 * c, 0.0, 0.3 * c,
+                                                            0.0, -0.2 * c]), world_pts)[0]
+                     for c in range(CAMS11)])
+    extract_cfg = dict(n_features=1000, n_levels=8)
+    inp = {"ba": problem, "priors": interop.pose_priors_to_numpy(priors),
+           "pose_graph": dict(g=g_est, fixed=fixed, ei=ei, ej=ej, meas=meas, valid=valid),
+           "extract_cfg": extract_cfg, "capacity": CAPACITY, "map": MAP6A, "cam": cam}
+
+    # the single-process references on the card, timed
+    t = {}
+    bundle_adjustment(p, n_iters=1, solver="dense")                       # warm
+    single = {}
+    for solver in ("dense", "cg"):
+        res, t[f"single_{solver}_ms"] = _timed11(
+            lambda: bundle_adjustment(p, n_iters=ITERS11[solver], solver=solver))
+        single[solver] = _ba_out(res, True)
+    res, t["single_cg_priors_ms"] = _timed11(lambda: bundle_adjustment(
+        p._replace(priors=interop.pose_priors_from_numpy(inp["priors"], dev)),
+        n_iters=N_ITERS11_CG, solver="cg"))
+    single["priors"] = _ba_out(res, True)
+    pg_single, t["single_pose_graph_ms"] = _timed11(lambda: optimize_pose_graph(
+        *(torch.from_numpy(np.array(a)).to(dev) for a in (g_est, fixed, ei, ej, meas, valid)),
+        solver="dense"))
+    cfg11 = ExtractorConfig(**extract_cfg)
+    imgs_dev = torch.from_numpy(imgs).to(dev)
+    extract_atlas_batch(imgs_dev, cfg11, CAPACITY)                       # warm
+    feats_single, t["single_extract_ms"] = _timed11(
+        lambda: extract_atlas_batch(imgs_dev, cfg11, CAPACITY))
+    ms_map = load_map_state(MAP6A)
+    gate(f"11e: load_map_state(path) with no device puts the map on the card "
+         f"({ms_map.kf.Tcw.device})", ms_map.kf.Tcw.device.type == "cuda")
+    (gba_single, gba_cost), t["single_global_ba_ms"] = _timed11(
+        lambda: run_global_ba(ms_map, cam))
+    del p, ms_map, imgs_dev
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as folder:
+        with open(os.path.join(folder, "inputs.pkl"), "wb") as f:
+            pickle.dump(inp, f)
+        np.save(os.path.join(folder, "imgs.npy"), imgs)
+        ranks = {}
+        for tag, backend, world in spawns:
+            s = time.perf_counter()
+            launch.run_ranks(_ranks11, world, (world, backend, tag, folder, rank_device),
+                             timeout_s=RANK_TIMEOUT_S)
+            t[f"spawn_{backend}_{world}_s"] = time.perf_counter() - s
+            for r in range(world):
+                with open(os.path.join(folder, f"rank{r}_{tag}.pkl"), "rb") as f:
+                    ranks[tag, r] = pickle.load(f)
+
+    r0 = ranks["all", 0]
+    n_cards = torch.cuda.device_count()
+    gate(f"rank r on cuda:{{r % {n_cards}}}",
+         rank_device is not None or all(o["device"] == f"cuda:{r % n_cards}"
+                                        for (_, r), o in ranks.items()))
+
+    def held(name, got, want):
+        """tests/test_parallel.py's bounds; prints the largest pose difference."""
+        errs = [synth.pose_error(a, b) for a, b in zip(got["Tcw"], want["Tcw"])]
+        rot, tr = max(e[0] for e in errs), max(e[1] for e in errs)
+        d = float(np.abs(got["Tcw"] - want["Tcw"]).max())
+        log(f"phase 11 {name}: largest pose difference {d:.3e} (rot {rot:.3e} deg, "
+            f"tr {tr:.3e}), cost {got['cost']:.6f} against {want['cost']:.6f}, inliers "
+            f"{got['n_inliers']} against {want['n_inliers']}, {got['ms']:.1f} ms")
+        gate(f"{name}: every pose within rot 0.05 deg and tr 0.01 of the single-rank solve, "
+             "cost within 10% + 5", rot < 0.05 and tr < 0.01
+             and abs(got["cost"] - want["cost"]) < 0.1 * want["cost"] + 5.0)
+        return d
+
+    for solver in ("dense", "cg"):
+        for n in (2, 4):
+            key = f"11a_{solver}_{n}"
+            t[f"{key}_ms"] = r0[key]["ms"]
+            held(f"11a {solver} on {n} gloo ranks", r0[key], single[solver])
+            gate(f"11a {solver} on {n} ranks: every rank returns the same result",
+                 all(ranks["all", r][key]["crc"] == r0[key]["crc"]
+                     and ranks["all", r][key]["Tcw"].tobytes() == r0[key]["Tcw"].tobytes()
+                     for r in range(n)))
+        nc = ranks["one", 0][f"11a_{solver}_all"]
+        t[f"11a_{solver}_nccl_1_ms"] = nc["ms"]
+        d = held(f"11a {solver} on 1 NCCL rank", nc, single[solver])
+        gate(f"11a {solver} on 1 NCCL rank: within {MAX_NCCL_POSE} of the single-rank solve, "
+             f"cost within {MAX_NCCL_COST_RTOL} relative", d <= MAX_NCCL_POSE
+             and abs(nc["cost"] - single[solver]["cost"])
+             <= MAX_NCCL_COST_RTOL * single[solver]["cost"])
+    for name in ("2", "4"):
+        t[f"gloo_all_reduce_ms_{name}_ranks"] = r0[f"all_reduce_ms_{name}"]
+    t["nccl_all_reduce_ms_1_rank"] = ranks["one", 0]["all_reduce_ms_all"]
+
+    t["11b_ms"] = r0["11b"]["ms"]
+    held("11b 2-D (kf 2 x lm 2) with GPS and tiepoint priors", r0["11b"], single["priors"])
+    gate("11b: every rank returns the same result",
+         all(ranks["all", r]["11b"]["crc"] == r0["11b"]["crc"] for r in range(RANKS11)))
+
+    t["11c_ms"] = r0["11c"]["ms"]
+    g_d, g_s = r0["11c"]["g"], pg_single.cpu().numpy()
+    err0 = float(np.linalg.norm(g_est[-1][5:] - g_true[-1][5:]))
+    err1 = float(np.linalg.norm(g_d[-1][5:] - g_true[-1][5:]))
+    log(f"phase 11c pose graph ({PG_K11} keyframes, {int(valid.sum())} edges) on 2 ranks: "
+        f"max |dg| against optimize_pose_graph {np.abs(g_d - g_s).max():.3e}, last "
+        f"keyframe's error {err0:.4f} -> {err1:.4f}")
+    gate("11c: distributed_pose_graph within 5e-4 of optimize_pose_graph, equal on both "
+         "ranks, the loop's drift cut tenfold",
+         np.abs(g_d - g_s).max() < 5e-4 and err1 < 0.1 * err0
+         and ranks["all", 1]["11c"]["g"].tobytes() == g_d.tobytes())
+
+    t["11d_ms"] = r0["11d"]["ms"]
+    same = {k: r0["11d"]["feats"][k].tobytes() == v.cpu().numpy().tobytes()
+            for k, v in feats_single._asdict().items()}
+    log(f"phase 11d: {CAMS11} cameras {W}x{H}, ORB {extract_cfg['n_features']} x "
+        f"{extract_cfg['n_levels']} on 2 ranks: fields equal to extract_atlas_batch's: {same}")
+    gate("11d: the gathered features are the bits of extract_atlas_batch over the batch",
+         all(same.values()) and ranks["all", 1]["11d"]["feats"]["desc"].tobytes()
+         == r0["11d"]["feats"]["desc"].tobytes())
+
+    e = r0["11e"]
+    t["11e_ms"] = e["ms"]
+    Tg = gba_single.kf.Tcw.cpu().numpy()
+    errs = [synth.pose_error(a, b) for a, b in zip(e["Tcw"], Tg)]
+    log(f"phase 11e run_global_ba(mesh=) on 2 ranks, the map of 6a from "
+        f"load_map_state on {r0['map_device']}: largest pose difference "
+        f"{np.abs(e['Tcw'] - Tg).max():.3e}, landmarks {np.abs(e['pos'] - gba_single.lm.pos.cpu().numpy()).max():.3e}, "
+        f"cost {e['cost']:.6f} against {gba_cost:.6f}, {e['ms']:.1f} ms")
+    gate("11e: every rank loaded the map on the card and wrote back the same map, within "
+         "rot 0.05 deg and tr 0.01 of the single-process global BA, cost within 10% + 5",
+         r0["map_device"].startswith("cuda") and max(x[0] for x in errs) < 0.05
+         and max(x[1] for x in errs) < 0.01 and abs(e["cost"] - gba_cost) < 0.1 * gba_cost + 5
+         and ranks["all", 1]["11e"]["Tcw"].tobytes() == e["Tcw"].tobytes()
+         and ranks["all", 1]["11e"]["pos"].tobytes() == e["pos"].tobytes())
+
+    t["card"] = card_line()
+    log("phase 11 timing: " + json.dumps(t))
+    if failed:
+        raise AssertionError("phase 11 failed: " + "; ".join(failed))
+    return t
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2717,6 +3096,7 @@ def main() -> int:
     launches += timed("8", phase8, cam, cfg, dev)
     launches += timed("9", phase9, cam, cfg, poses, pairs, pts)
     launches += timed("10", phase10, cam, cfg, poses, pairs, timing5)
+    timed("11", phase11, cam, dev)
     log(f"seconds a phase: {json.dumps(took)}")
     log(json.dumps({"kernels": [{
         "name": "pose_opt",

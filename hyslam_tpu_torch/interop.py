@@ -5,7 +5,8 @@ rebuilt in the port from the same numpy code, and the map state. These
 functions turn JAX-package arrays, given as numpy (``np.asarray`` of a JAX
 array), into the port's tensors and back: features, cameras, extractor
 configs, landmark tables, whole map states, trajectories, the async loop's
-tracker state, sensor records and arenas, BA's pose priors, a whole
+tracker state, sensor records and arenas, BA's pose priors and whole BA
+problems, a whole
 ``SystemConfig``, the BoW vocabulary, and a loop closer's state (its
 recognizer's rows, consistency groups and loop edges). Objects are read by field name,
 so nothing here imports the JAX package.
@@ -192,6 +193,32 @@ def pose_priors_from_numpy(pr, device=None):
 
 def pose_priors_to_numpy(pr) -> dict:
     return _tuple_to(pr)
+
+
+def ba_problem_from_numpy(p, device=None):
+    """A JAX-package BAProblem (read by field name, its arrays through
+    numpy; pose priors included), or the dict from ``ba_problem_to_numpy``
+    -> the port's BAProblem on ``device``."""
+    from hyslam_tpu_torch.solver.ba import BAObservations, BAProblem, CamArrays
+
+    get = p.get if isinstance(p, dict) else (lambda k: getattr(p, k))
+    pr = get("priors")
+    return BAProblem(
+        kf_Tcw=_tensor(get("kf_Tcw"), device), kf_fixed=_tensor(get("kf_fixed"), device),
+        cams=_tuple_from(CamArrays, get("cams"), device),
+        lm_pos=_tensor(get("lm_pos"), device), lm_valid=_tensor(get("lm_valid"), device),
+        obs=_tuple_from(BAObservations, get("obs"), device),
+        priors=None if pr is None else pose_priors_from_numpy(pr, device))
+
+
+def ba_problem_to_numpy(p) -> dict:
+    """The port's BAProblem -> nested dict of numpy arrays ("cams", "obs"
+    and "priors" as dicts; "priors" None where there are none)."""
+    out = {k: getattr(p, k).detach().cpu().numpy()
+           for k in ("kf_Tcw", "kf_fixed", "lm_pos", "lm_valid")}
+    out.update(cams=_tuple_to(p.cams), obs=_tuple_to(p.obs),
+               priors=None if p.priors is None else _tuple_to(p.priors))
+    return out
 
 
 def dev_track_state_from_numpy(dev, device=None):

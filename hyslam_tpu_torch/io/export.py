@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from hyslam_tpu_torch import interop
+from hyslam_tpu_torch.device import resolve_device
 from hyslam_tpu_torch.core.frame import FrameFeatures
 from hyslam_tpu_torch.core.mapstate import MapState
 from hyslam_tpu_torch.core.sensordata import SensorArena
@@ -202,8 +203,9 @@ def save_map_state(path: str, ms: MapState):
 
 def load_map_state(path: str, device=None) -> MapState:
     """The MapState of an npz written by ``save_map_state`` of either
-    package, on ``device``."""
-    return _map_from(np.load(path), device)
+    package, on ``device``: the card where it is None
+    (``device.resolve_device``; raises where there is none)."""
+    return _map_from(np.load(path), resolve_device(device))
 
 
 def save_checkpoint(path: str, tracker, system_scalars=None) -> None:

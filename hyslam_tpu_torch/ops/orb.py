@@ -109,7 +109,12 @@ def orient_and_describe(img: torch.Tensor, uv: torch.Tensor):
                            lin.reshape(B, -1)).reshape(B, N, PATCH, PATCH)
     flat_raw = patches.reshape(B, N, PATCH * PATCH)
 
-    m = flat_raw @ torch.as_tensor(_W48, device=dev)          # [B,N,2]
+    # the moments and (below) the patch means one image at a time: the order
+    # of a GEMM's or a reduction's sums may depend on how many rows it is
+    # given, and an image's features must not depend on the batch it came
+    # in (parallel/multicam.py shards a batch over ranks)
+    W48 = torch.as_tensor(_W48, device=dev)
+    m = torch.stack([f @ W48 for f in flat_raw])              # [B,N,2]
     ang = torch.atan2(m[..., 1], m[..., 0])
 
     # separable 7-tap blur with wrapping rolls; the wrap artifacts live in
@@ -124,7 +129,7 @@ def orient_and_describe(img: torch.Tensor, uv: torch.Tensor):
     flat_b = pb2.reshape(B, N, PATCH * PATCH)
     # centre per patch, then round to bf16 as the JAX package does before
     # its matmul; back in f32 the sample difference is exact
-    flat_b = flat_b - flat_b.mean(dim=-1, keepdim=True)
+    flat_b = flat_b - torch.stack([f.mean(dim=-1, keepdim=True) for f in flat_b])
     flat_b = flat_b.to(torch.bfloat16).to(torch.float32)
 
     two_pi = 2.0 * np.pi

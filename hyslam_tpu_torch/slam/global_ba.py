@@ -1,8 +1,10 @@
 """Global bundle adjustment over the whole map (counterpart of
 ``hyslam_tpu/slam/global_ba.py``): every valid keyframe and landmark in one
 BAProblem whose slots are the arena's, the first origin fixed, LM with the
-sensor and sub-map tiepoint pose priors, and the result scattered back. The
-landmark-sharded solve over several devices (``mesh``) is ROADMAP step 20.
+sensor and sub-map tiepoint pose priors, and the result scattered back.
+With a mesh (``parallel.mesh``) the ranks solve it together: the landmarks
+sharded over 'lm' (``parallel.dist_ba``), and at K >= 512 on a mesh with a
+'kf' axis the reduced camera system's columns over 'kf' as well.
 
 At ``MapCaps(K=512)`` and above ``solver="auto"`` takes the matrix-free CG
 solve (``solver/ba.py``), below it the dense Schur solve.
@@ -16,6 +18,10 @@ from hyslam_tpu_torch.core import mapstate as M
 from hyslam_tpu_torch.core.frame import feature_inv_sigma2
 from hyslam_tpu_torch.core.mapstate import MapState
 from hyslam_tpu_torch.geometry.camera import Camera
+from hyslam_tpu_torch.parallel.dist_ba import (
+    distributed_bundle_adjustment,
+    distributed_bundle_adjustment_2d,
+)
 from hyslam_tpu_torch.slam.sensor_fusion import build_pose_priors
 from hyslam_tpu_torch.solver.ba import BAObservations, BAProblem, CamArrays, bundle_adjustment
 
@@ -76,18 +82,35 @@ def run_global_ba(ms: MapState, cam: Camera, n_iters: int = 20, chunk: int = 512
     ``sensors`` / ``opt_info`` bring in the sensor and sub-map tiepoint pose
     priors (``slam.sensor_fusion.build_pose_priors``); ``solver`` is
     ``bundle_adjustment``'s. Reads back: the priors' host work, whether a
-    tiepoint edge is valid, and the cost."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "global BA sharded over a device mesh is ROADMAP step 20")
+    tiepoint edge is valid, and the cost.
+
+    With ``mesh`` every rank of it calls this with the same map and gets the
+    same map back. On a mesh with a 'kf' axis and K >= 512 slots the 2-D
+    solver runs (its CG; ``solver`` is not used); otherwise the 'kf' axis,
+    if any, is folded into one 'lm' axis and the 1-D solver runs.
+    ``caps.L`` must be divisible by the 'lm' size."""
     priors = build_pose_priors(ms, sensors=sensors, opt=opt_info)
     tie_active = priors is not None and bool(priors.tie_valid.any())
     prob = build_global_problem(ms, cam, tie_active=tie_active, n_levels=n_levels,
                                 scale_factor=scale_factor)
     if priors is not None:
         prob = prob._replace(priors=priors)
-    res = bundle_adjustment(prob, n_iters=n_iters, huber=True, chunk=chunk, solver=solver)
-    Tcw = torch.where(~prob.kf_fixed[:, None, None], res.kf_Tcw, ms.kf.Tcw)
-    pos = torch.where(prob.lm_valid[:, None], res.lm_pos, ms.lm.pos)
+    if mesh is None:
+        res = bundle_adjustment(prob, n_iters=n_iters, huber=True, chunk=chunk,
+                                solver=solver)
+    elif "kf" in mesh.shape and prob.kf_Tcw.shape[0] >= 512:
+        # keyframe-scale maps: partition the reduced camera system's columns
+        # over 'kf' as well; each CG product still moves a [K,6]
+        res = distributed_bundle_adjustment_2d(prob, mesh, n_iters=n_iters, huber=True,
+                                               chunk=chunk)
+    else:
+        # small maps: the 1-D landmark sharding over every rank of the mesh
+        if "kf" in mesh.shape:
+            mesh = mesh.folded("lm")
+        res = distributed_bundle_adjustment(prob, mesh, n_iters=n_iters, huber=True,
+                                            chunk=chunk, solver=solver)
+    dev = ms.kf.Tcw.device
+    Tcw = torch.where(~prob.kf_fixed[:, None, None], res.kf_Tcw.to(dev), ms.kf.Tcw)
+    pos = torch.where(prob.lm_valid[:, None], res.lm_pos.to(dev), ms.lm.pos)
     ms = ms._replace(kf=ms.kf._replace(Tcw=Tcw), lm=ms.lm._replace(pos=pos))
     return M.update_landmark_stats(ms), float(res.cost)

@@ -1,7 +1,8 @@
 """Bundle adjustment with Schur-complement landmark marginalization
 (counterpart of ``hyslam_tpu/solver/ba.py``: the dense solve, the
-matrix-free CG solve, and sensor / tiepoint pose priors; the sharded solve
-over several devices, ``psum_axis``, is ROADMAP step 20).
+matrix-free CG solve, and sensor / tiepoint pose priors; the CG solve takes
+a process group, ``group``, where JAX's takes ``psum_axis``, for the
+landmark-sharded solve of ``parallel/dist_ba.py``).
 
 Levenberg-Marquardt over keyframe poses [K] and landmark positions [L], the
 landmark block eliminated exactly:
@@ -31,6 +32,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from hyslam_tpu_torch.geometry import se3, so3
 from hyslam_tpu_torch.solver import robust
@@ -297,41 +299,35 @@ def _solve_poses(Hpp, b_pose, S_red, b_red, kf_fixed, lam):
     return delta.reshape(K, 6)
 
 
-def _solve_poses_cg(Hpp, b_pose, b_red, Y, kf_idx, kf_fixed, lam,
-                    priors: PosePriors | None = None,
-                    Hab: torch.Tensor | None = None,
-                    n_cg: int = 200, tol: float = 1e-5):
-    """Solve the reduced camera system by preconditioned CG on matrix-free
-    products: S x = Hpp_d x - S_red x (+ the tiepoint off-diagonal), the
-    preconditioner block-Jacobi on the exact 6x6 diagonal blocks of S (their
-    Cholesky factors; a block that fails to factor preconditions with the
-    identity). The loop runs n_cg times; a system that has met
-    ||r||^2 <= tol^2 ||b||^2 stops changing, so the result is that of
-    ``jax.scipy.sparse.linalg.cg`` with the same tol and maxiter."""
-    K = Hpp.shape[0]
-    dtype, dev = Hpp.dtype, Hpp.device
-    Hpp_d, tr = _damped(Hpp, lam)
-    free = (~kf_fixed) & (tr > 0)
-    fm = free[:, None].to(dtype)                                  # [K,1]
+def psum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of t over the ranks of a process group, as JAX's ``psum``: a
+    new tensor, the same on every rank of the group; t itself where the
+    group is None (one process)."""
+    if group is None:
+        return t
+    out = t.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=group)
+    return out
 
-    def S_mv(x):
-        xz = x * fm
-        out = torch.einsum("kij,kj->ki", Hpp_d, xz) - _reduced_matvec(Y, kf_idx, xz)
-        if priors is not None and Hab is not None:
-            out = out + tie_offdiag_matvec(priors, Hab, xz, K)
-        # the identity on fixed and unused coordinates keeps S SPD
-        return out * fm + x * (1.0 - fm)
 
-    eye6 = torch.eye(6, dtype=dtype, device=dev)
-    D = torch.where(free[:, None, None], Hpp_d - _reduced_diag(Y, kf_idx, K), eye6)
+def _block_jacobi(D, free):
+    """The preconditioner's inverse blocks [K,6,6]: the Cholesky inverse of
+    each diagonal block of S where it factors, the identity elsewhere."""
+    eye6 = torch.eye(6, dtype=D.dtype, device=D.device)
+    D = torch.where(free[:, None, None], D, eye6)
     Lf, info = torch.linalg.cholesky_ex(D)
-    Dinv = torch.where((info == 0)[:, None, None],
-                       torch.cholesky_solve(eye6.expand(K, 6, 6), Lf), eye6)
+    return torch.where((info == 0)[:, None, None],
+                       torch.cholesky_solve(eye6.expand(D.shape[0], 6, 6), Lf), eye6)
 
+
+def _pcg(S_mv, Dinv, fm, b, n_cg: int, tol: float):
+    """Block-Jacobi preconditioned CG on S x = b from x = 0. The loop runs
+    n_cg times; a system that has met ||r||^2 <= tol^2 ||b||^2 stops
+    changing (a mask, no read of the residual), so the result is that of
+    ``jax.scipy.sparse.linalg.cg`` with the same tol and maxiter."""
     def precond(r):
         return torch.einsum("kij,kj->ki", Dinv, r) * fm + r * (1.0 - fm)
 
-    b = (b_pose - b_red) * fm
     atol2 = tol * tol * torch.sum(b * b)
     x = torch.zeros_like(b)
     r = b
@@ -350,6 +346,39 @@ def _solve_poses_cg(Hpp, b_pose, b_red, Y, kf_idx, kf_fixed, lam,
         r = torch.where(active, r_new, r)
         p = torch.where(active, p_new, p)
         gamma = torch.where(active, gamma_new, gamma)
+    return x
+
+
+def _solve_poses_cg(Hpp, b_pose, b_red, Y, kf_idx, kf_fixed, lam,
+                    priors: PosePriors | None = None,
+                    Hab: torch.Tensor | None = None,
+                    n_cg: int = 200, tol: float = 1e-5, group=None):
+    """Solve the reduced camera system by preconditioned CG on matrix-free
+    products: S x = Hpp_d x - S_red x (+ the tiepoint off-diagonal), the
+    preconditioner block-Jacobi on the exact 6x6 diagonal blocks of S (their
+    Cholesky factors; a block that fails to factor preconditions with the
+    identity). With ``group`` (a process group), Y, kf_idx and b_red are
+    one landmark shard's, and the S_red products, its diagonal and b_red
+    are summed over the group (each product an all_reduce of a [K,6]),
+    where the JAX package psums over ``psum_axis``."""
+    K = Hpp.shape[0]
+    dtype = Hpp.dtype
+    Hpp_d, tr = _damped(Hpp, lam)
+    free = (~kf_fixed) & (tr > 0)
+    fm = free[:, None].to(dtype)                                  # [K,1]
+
+    def S_mv(x):
+        xz = x * fm
+        out = (torch.einsum("kij,kj->ki", Hpp_d, xz)
+               - psum(_reduced_matvec(Y, kf_idx, xz), group))
+        if priors is not None and Hab is not None:
+            out = out + tie_offdiag_matvec(priors, Hab, xz, K)
+        # the identity on fixed and unused coordinates keeps S SPD
+        return out * fm + x * (1.0 - fm)
+
+    Dinv = _block_jacobi(Hpp_d - psum(_reduced_diag(Y, kf_idx, K), group), free)
+    b = (b_pose - psum(b_red, group)) * fm
+    x = _pcg(S_mv, Dinv, fm, b, n_cg, tol)
     return torch.where(torch.isfinite(x) & free[:, None], x, 0.0)
 
 

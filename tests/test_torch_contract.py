@@ -2,6 +2,7 @@
 tables are the JAX package's bit for bit, state crosses between the two
 packages unchanged, and on the CPU nothing builds or launches a kernel."""
 
+import inspect
 import os
 import subprocess
 import sys
@@ -58,7 +59,10 @@ SLICE_MODULES = [
     "hyslam_tpu_torch.slam.loop_closing", "hyslam_tpu_torch.runtime.native",
     "hyslam_tpu_torch.runtime.pipeline", "hyslam_tpu_torch.viz.draw2d",
     "hyslam_tpu_torch.viz.frame_drawer", "hyslam_tpu_torch.viz.map_drawer",
-    "hyslam_tpu_torch.viz.viewer", "hyslam_tpu_torch.viz",
+    "hyslam_tpu_torch.viz.viewer", "hyslam_tpu_torch.viz", "hyslam_tpu_torch.parallel",
+    "hyslam_tpu_torch.parallel.mesh", "hyslam_tpu_torch.parallel.launch",
+    "hyslam_tpu_torch.parallel.dist_ba", "hyslam_tpu_torch.parallel.dist_pose_graph",
+    "hyslam_tpu_torch.parallel.multicam",
 ]
 
 
@@ -241,6 +245,28 @@ def test_tracker_defaults_to_the_card():
     assert tr.ms.lm.pos.device.type == "cpu" and tr.traj.Tcw.device.type == "cpu"
 
 
+def test_load_map_state_defaults_to_the_card(tmp_path, monkeypatch):
+    """load_map_state(path) with no device puts the map on
+    device.default_device() (the card; monkeypatched here to the meta
+    device, which the CPU has), as the JAX package puts it on its default
+    device; device="cpu" still gives the CPU."""
+    from hyslam_tpu_torch import device
+    from hyslam_tpu_torch.core.mapstate import MapCaps, empty_map_state
+    from hyslam_tpu_torch.io import export
+
+    path = str(tmp_path / "map.npz")
+    export.save_map_state(path, empty_map_state(MapCaps(K=4, L=16, F=8, O=2), device="cpu"))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            export.load_map_state(path)
+    monkeypatch.setattr(device, "default_device", lambda: torch.device("meta"))
+    ms = export.load_map_state(path)
+    assert ms.kf.Tcw.device.type == "meta" and ms.lm.pos.device.type == "meta"
+    assert ms.covis.device.type == "meta"
+    ms = export.load_map_state(path, device="cpu")
+    assert ms.kf.Tcw.device.type == "cpu" and ms.lm.pos.device.type == "cpu"
+
+
 def test_kernel_build_is_keyed_and_ignored():
     """The library goes under build/ (which .gitignore lists), in a folder
     named by a hash of the sources and flags."""
@@ -405,4 +431,10 @@ def test_unported_paths_raise():
     assert bool(torch.isfinite(with_pr.cost))
     with pytest.raises(ValueError, match="unknown solver"):
         ba.bundle_adjustment(prob, solver="lu")
-    assert not hasattr(ba, "psum_axis")   # the sharded solve is ROADMAP step 20
+    # the sharded solve: where JAX's CG takes psum_axis, the port's takes a
+    # process group, and a mesh needs an initialized default group
+    assert "group" in inspect.signature(ba._solve_poses_cg).parameters
+    from hyslam_tpu_torch.parallel import mesh as pmesh
+
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        pmesh.make_mesh(device="cpu")

@@ -93,9 +93,28 @@ def test_run_global_ba_matches_jax(map_with_submap, n_iters, cost_rtol, pose_ato
     np.testing.assert_array_equal(tree_np(ms2_t.lm.n_obs), np.asarray(ms2_j.lm.n_obs))
 
 
-def test_run_global_ba_with_a_mesh_raises(map_with_submap):
-    with pytest.raises(NotImplementedError, match="step 20"):
-        gba.run_global_ba(map_with_submap[1], CAM, mesh=object())
+def test_run_global_ba_with_a_mesh_runs(map_with_submap, tmp_path):
+    """run_global_ba(mesh=) takes the landmark-sharded solver
+    (parallel/dist_ba.py). On a one-rank gloo group it gives the map that
+    run_global_ba gives without a mesh, with the sensor and tiepoint priors
+    counted once: equal bits. Four ranks: tests/test_torch_parallel.py."""
+    import torch.distributed as dist
+
+    from hyslam_tpu_torch.parallel import launch
+    from hyslam_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+
+    _, ms_t, _, sens_t = map_with_submap
+    kw = dict(n_iters=3, sensors=sens_t, opt_info=OptimizerInfo(**OPT))
+    want, cost = gba.run_global_ba(ms_t, CAM, **kw)
+    launch.init_rank(0, 1, f"file://{tmp_path / 'rendezvous'}", "gloo", timeout_s=120)
+    try:
+        for mesh in (make_mesh(device="cpu"), make_mesh_2d(device="cpu")):
+            got, cost_m = gba.run_global_ba(ms_t, CAM, mesh=mesh, **kw)
+            assert cost_m == cost
+            assert got.kf.Tcw.numpy().tobytes() == want.kf.Tcw.numpy().tobytes()
+            assert got.lm.pos.numpy().tobytes() == want.lm.pos.numpy().tobytes()
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
