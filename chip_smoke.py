@@ -502,6 +502,22 @@ def device_rows(fn, n: int = 1) -> list[tuple[str, float]]:
             if e.device_type == DeviceType.CUDA]
 
 
+def launch_rows(fn, n: int, what: str, sessions: int = 5) -> list[tuple[str, float]]:
+    """n device rows of fn, one launch a call, by device_rows over sessions of
+    n calls. The profiler may drop rows of a session (82 of 100 calls of K1
+    once on an H100), so sessions repeat until n rows are in. A session with
+    more rows than calls fails: fn launched more than one thing a call."""
+    rows: list[tuple[str, float]] = []
+    for _ in range(sessions):
+        got = device_rows(fn, n)
+        if len(got) > n:
+            raise AssertionError(f"{what}: {len(got)} device rows for {n} calls")
+        rows += got
+        if len(rows) >= n:
+            return rows[:n]
+    raise AssertionError(f"{what}: {len(rows)} device rows for {sessions * n} calls")
+
+
 def phase1(dev):
     from hyslam_tpu_torch.ops.pose_opt_cuda import pose_optimization_cuda
     from hyslam_tpu_torch.solver.pose_opt import (
@@ -584,9 +600,7 @@ def phase1(dev):
                                                 iters_per_round=s[1])
             fn()
             sched[s][0].append(cuda_ms(fn, N_TIMED))
-            us = [us for _, us in device_rows(fn, N_TIMED)]  # the profiler may drop a row
-            if not 0.9 * N_TIMED <= len(us) <= N_TIMED:
-                raise AssertionError(f"phase 1: {len(us)} device rows for {N_TIMED} launches")
+            us = [us for _, us in launch_rows(fn, N_TIMED, f"phase 1 N={n_obs} {s}")]
             sched[s][1].append(statistics.mean(us) / 1e3)
         fixed_ms = statistics.mean(sched[(0, 0)][1])
         per_iter_us = 1e3 * (statistics.mean(sched[(4, 10)][1]) - fixed_ms) / 40
@@ -621,7 +635,7 @@ def phase1(dev):
     max_abs_err, (cam, targs, n_valid, n_inl, T_one) = check(CAPACITY)
     fns, kargs, runs = timings(cam, targs, CAPACITY, N_TIMED_PLAIN)
     k_ms, fast_ms = statistics.mean(runs["kernel"]), statistics.mean(runs["fast"])
-    rows = [name for name, _ in device_rows(fns["fast"])]
+    rows = [name for name, _ in launch_rows(fns["fast"], 1, "phase 1 fast")]
     log(f"phase 1: one pose_optimization_fast call put on the device: {rows}")
     if len(rows) != 1 or abs(fast_ms - k_ms) >= MAX_FAST_OVER_KERNEL_MS:
         raise AssertionError(f"phase 1: fast {fast_ms} ms vs kernel {k_ms} ms, "
@@ -3109,7 +3123,7 @@ def main() -> int:
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
-        "count": 1,                       # the one card this run drives
+        "count": torch.cuda.device_count(),
     }}))
     return 0
 

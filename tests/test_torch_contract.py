@@ -267,6 +267,17 @@ def test_load_map_state_defaults_to_the_card(tmp_path, monkeypatch):
     assert ms.kf.Tcw.device.type == "cpu" and ms.lm.pos.device.type == "cpu"
 
 
+def test_the_port_runs_deterministic_algorithms():
+    """Loading the package switches on PyTorch's deterministic algorithms
+    (warn only, fresh memory not filled), so a run on the card is the same
+    run every time."""
+    from torch.utils import deterministic
+
+    assert torch.are_deterministic_algorithms_enabled()
+    assert torch.is_deterministic_algorithms_warn_only_enabled()
+    assert not deterministic.fill_uninitialized_memory
+
+
 def test_kernel_build_is_keyed_and_ignored():
     """The library goes under build/ (which .gitignore lists), in a folder
     named by a hash of the sources and flags."""

@@ -30,7 +30,8 @@ sys.path.insert(0, str(REPO))
 
 NEW_MODULES = ["tools.make_synthetic_dataset_torch", "tools.bench_multihost_torch",
                "tools.bench_ba_torch", "tools.eval_loop_pr_torch",
-               "tools.profile_system_torch", "examples.torch_common",
+               "tools.profile_system_torch", "tools.repeat_phase8_torch",
+               "examples.torch_common",
                "examples.run_kitti_torch", "examples.run_tum_torch",
                "examples.run_synthetic_torch", "examples.run_euroc_torch",
                "examples.run_dual_camera_torch"]
@@ -128,6 +129,23 @@ def test_tools_and_drivers_import_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_repeat_phase8_reads_rows_and_summaries():
+    from tools.repeat_phase8_torch import rows_and_summary
+
+    text = ("  8a frame 0: INITIALIZE motion 0 inliers 0 kf 0\n"
+            "phase 8a: 90 rows, 86 trajectory poses, 86 keyframes, n_maps 2, sub-map moved "
+            "at frame 29, ATE 0.042637 m, worst frame 43\n"
+            "phase 8a: the first loop joins keyframe 68\n"
+            "  8b frame 0: INITIALIZE motion 0 inliers 0 kf 0\n"
+            "  8b frame 1: POSTINIT motion 0 inliers 393 kf 1\n"
+            "phase 8b: 90 rows, 83 trajectory poses, 57 keyframes, n_maps 3, ATE 0.458232 m\n")
+    got = rows_and_summary(text)
+    assert got["a"] == {"rows": ["  8a frame 0: INITIALIZE motion 0 inliers 0 kf 0"],
+                        "ate": 0.042637, "n_maps": 2}
+    assert len(got["b"]["rows"]) == 2 and got["b"]["ate"] == 0.458232
+    assert got["b"]["n_maps"] == 3
 
 
 @pytest.mark.slow
