@@ -3,7 +3,8 @@
 through a loss of tracking, with sensor readings, with a monocular camera,
 with periodic global BA, with loop closing, with a second (Imaging) camera,
 with the SURF feature family and through the threaded pipeline; then its
-sharded solvers over several ranks.
+sharded solvers over several ranks, its benchmark (bench_torch.py) and its
+vocabulary trainer.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card and
 the CUDA toolkit:
@@ -88,7 +89,7 @@ It exits non-zero, printing no result, where CUDA is not available. Phases:
    their sites: of the async mode over frames N_WARM to N_SYNC_COUNT - 1 of
    the second async run, where the async loop's own code must make none; of
    the sync mode over the same frames of phase 6a's sync run, which up to
-   the blackout is this phase's sync run. *RGB-D*: 30 frames through
+   the blackout is this phase's sync run. *RGB-D*: N_RGBD frames through
    ``System.track_rgbd`` with depth rendered from the truth. *from disk*:
    8 frames written in the KITTI layout (8-bit PGM), read back by
    ``io.datasets.KittiOdometry`` and fed to a fresh System, whose poses must
@@ -251,6 +252,23 @@ It exits non-zero, printing no result, where CUDA is not available. Phases:
    spawns, and one all_reduce of a [K,6] on each group: timings on one
    shared card, not scaling figures. Phase 11 launches no K1.
 
+12. ``bench_torch.py``'s measurements at their defaults on the card:
+   ``bench_system_fps`` (bench.py's sequence, 24 warm and 60 timed frames
+   through an async System) and ``bench_frontend_fps`` (60 pose-chained
+   front-end steps after 6 warm ones). Gates: the line has bench.py's keys
+   and vs_baseline = system_fps / 60; every frame tracked and the tracker
+   ends NORMAL; ATE under phase 4's MAX_ATE; K1 launches as the System's
+   telemetry calls for, and one a front-end step.
+
+13. ``tools/train_synthetic_vocab_torch.py`` at full scale on the card: the
+   shipped vocabulary's k 10, depth 5 and corpus (1400 images, read from its
+   largest idf, ln(images): 700 worlds x 2 poses x 500 features), written
+   into ``build/``; then
+   ``tools/eval_loop_pr_torch.py`` on it and on the shipped
+   ``Vocabulary/synthetic_orb.npz``. Gates: k, depth and more than
+   10^(depth-1) words; its loop AUC-PR at least the shipped one's less
+   AUC_MARGIN13; the shipped file's bytes unchanged.
+
 Prints the card line, one JSON line of kernel results (with the kernel's
 time: its bound and what sets it, its fixed part and its time an
 iteration), and last
@@ -262,23 +280,20 @@ from __future__ import annotations
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
-H, W = 720, 1280
-FX, BF = 700.0, 84.0          # bench.py's SLAM camera: fx = fy, bf = baseline * fx
+from bench_torch import FRAME_DT, H, N_POINTS, W, card_line
+
 N_FRAMES = 30                 # phase 2
 N_TRACK = 60                  # phase 4; phase 2 takes the first N_FRAMES
-FRAME_DT = 0.05               # s between frames
 TRACK_CAPS = (64, 16384, 1024, 8)   # MapCaps K, L, F, O of bench.py
 CAPACITY = 1024
 IMG_CAPS = (64, 16384, 3072, 8)    # phase 9's shared arena: F for 3000 features
 N_LANDMARKS = 4096
-N_POINTS = 4000
 N_TIMED = 100
 N_TIMED_PLAIN = 10            # calls a run of the plain solver (160 ms a call)
 N_ODD = 4093                  # phase 1: a problem of four chunks, N % 4 != 0
@@ -316,9 +331,9 @@ MIN_LIVE_OF_SEEDED = 0.75     # live landmarks at the end / seeded at init
 N_COMPARE = 3
 # phase 5: frames before the timed window, frames of the RGB-D and disk
 # runs and of the runs that count synchronising calls
-N_WARM, N_RGBD, N_DISK, N_SYNC_COUNT = 10, 30, 8, 24
+N_WARM, N_RGBD, N_DISK, N_SYNC_COUNT = 10, 16, 8, 24
 MIN_SEEDED_RGBD = 100
-N_PLAIN = 20                  # phase 4: frames of the run with the plain solver
+N_PLAIN = 10                  # phase 4: frames of the run with the plain solver
 # phase 6: the blackout (frames DARK[0]..DARK[1]-1 are flat), the forced
 # loss, the sensors' weights and noise, the checkpoint's frame. The bounds
 # are 1.5x the sync run's readings on an NVIDIA H100 80GB HBM3 at 700 W
@@ -424,17 +439,17 @@ CAMS11 = 4                    # 11d: cameras a batch, 2 a rank
 # keyframe in an order that changes from run to run (bench_multihost's
 # problem draws a landmark's keyframes with repeats)
 MAX_NCCL_POSE, MAX_NCCL_COST_RTOL = 1e-4, 2e-6
+# phase 12: bench_torch.py's front end steps 6 warm frames and 60 timed, one
+# K1 launch each
+N_FRONTEND_STEPS = 66
+# phase 13: a vocabulary trained into build/ at the shipped one's scale; its
+# loop AUC-PR may fall this far below the shipped one's
+VOCAB13 = os.path.join("build", "vocab", "synthetic_orb_torch.npz")
+AUC_MARGIN13 = 0.05
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 def cuda_ms(fn, n: int) -> float:
@@ -722,32 +737,23 @@ def profile_frames(track, poses, dev, frame_ms: float, n: int = 5) -> None:
 
 def camera_and_config():
     """The reference's SLAM camera (bench.py) and its ORB settings."""
+    from bench_torch import bench_camera
     from hyslam_tpu_torch.features.extractor import ExtractorConfig
-    from hyslam_tpu_torch.geometry.camera import Camera
 
-    cam = Camera(fx=FX, fy=FX, cx=W / 2, cy=H / 2, width=W, height=H, bf=BF,
-                 th_depth=35.0)
-    return cam, ExtractorConfig(n_features=1000, n_levels=8)
+    return bench_camera(), ExtractorConfig(n_features=1000, n_levels=8)
 
 
-def render_sequence(cam, dev, n: int):
-    """n stereo pairs of a world of N_POINTS points from default_rng(0), the
-    camera moving 0.08 m forward with 0.002 rad of yaw per frame. Returns
-    (poses [n] numpy, pairs [n,2,H,W] on dev, the world's points)."""
-    from hyslam_tpu_torch.utils import synth
+def render_sequence(dev, n: int):
+    """bench_torch.py's sequence: n stereo pairs of a world of N_POINTS
+    points from default_rng(0), the camera moving 0.08 m forward with 0.002
+    rad of yaw per frame. Returns (poses [n] numpy, pairs [n,2,H,W] on dev,
+    the world's points)."""
+    from bench_torch import _render_sequence
 
-    rng = np.random.default_rng(0)
-    pts = np.stack([rng.uniform(-14, 14, N_POINTS), rng.uniform(-9, 9, N_POINTS),
-                    rng.uniform(3, 45, N_POINTS)], -1).astype(np.float32)
-    delta = synth.se3_exp([0.0, 0.002, 0.0, 0.0, 0.0, -0.08])
-    poses = [np.eye(4, dtype=np.float32)]
-    for _ in range(n - 1):
-        poses.append((delta @ poses[-1]).astype(np.float32))
     t0 = time.perf_counter()
-    pairs = torch.from_numpy(np.stack(
-        [synth.render_stereo_pair(cam, T, pts) for T in poses])).to(dev)
+    _, frames, truth, pts = _render_sequence(n)
     log(f"rendered {n} stereo pairs {W}x{H} in {time.perf_counter() - t0:.1f} s")
-    return poses, pairs, pts
+    return list(truth), torch.from_numpy(frames).to(dev), pts
 
 
 def phase2(dev, cam, cfg, poses, pairs):
@@ -3078,6 +3084,104 @@ def phase11(cam, dev, rank_device=None, spawns=(("all", "gloo", RANKS11), ("one"
     return t
 
 
+def phase12():
+    """bench_torch.py's measurements at their defaults; see the module
+    docstring. Returns the K1 launches of both."""
+    import bench_torch
+    from hyslam_tpu_torch.ops.pose_opt_cuda import pose_optimization_cuda
+    from hyslam_tpu_torch.slam.tracker import State
+
+    failed = []
+
+    def gate(name, ok):
+        log(f"phase 12 gate {'ok' if ok else 'FAILED'}: {name}")
+        if not ok:
+            failed.append(name)
+
+    pose_optimization_cuda.launches = 0
+    run = bench_torch.bench_system_fps()
+    k1_system = pose_optimization_cuda.launches
+    pose_optimization_cuda.launches = 0
+    fe_fps = bench_torch.bench_frontend_fps()
+    k1_frontend = pose_optimization_cuda.launches
+    tr = run.system.trackers["SLAM"]
+    n = len(run.truth)
+    size, ate = bench_torch.trajectory_accuracy(run.system, run.truth)
+    line = bench_torch.result_line(run.fps, fe_fps)
+    n_kf = sum(t.kf_inserted >= 0 for t in tr.telemetry)
+    log(f"phase 12 system: {n} frames, {size} tracked, {n_kf} keyframes, ATE {ate:.6f} m, "
+        f"K1 launches {k1_system}; front end K1 launches {k1_frontend}")
+    log(f"phase 12 bench line: {json.dumps(line)}")
+    gate("the line has bench.py's keys",
+         set(line) == {"metric", "value", "unit", "vs_baseline", "system_fps",
+                       "system_vs_baseline", "frontend_fps"})
+    gate(f"vs_baseline {line['vs_baseline']} == system_fps / 60 ({run.fps / 60:.6f})",
+         line["vs_baseline"] == round(run.fps / 60, 3) == line["system_vs_baseline"])
+    gate(f"every frame tracked: {n} rows in frame order, {size} trajectory poses, NORMAL",
+         [t.frame_id for t in tr.telemetry] == list(range(n)) and size == n
+         and all(tracked_row(t) for t in tr.telemetry[1:]) and tr.state == State.NORMAL)
+    gate(f"ATE {ate:.6f} < {MAX_ATE} m", ate < MAX_ATE)
+    gate(f"system: K1 launches {k1_system} == {expected_launches(tr)} from the telemetry",
+         k1_system == expected_launches(tr))
+    gate(f"front end: K1 launches {k1_frontend} == one a frame step ({N_FRONTEND_STEPS})",
+         k1_frontend == N_FRONTEND_STEPS)
+    if failed:
+        raise AssertionError("phase 12 failed: " + "; ".join(failed))
+    return k1_system + k1_frontend
+
+
+def phase13():
+    """The vocabulary trainer at full scale, then the loop PR curve of its
+    vocabulary and of the shipped one; see the module docstring."""
+    import hashlib
+
+    from hyslam_tpu_torch.features.vocab_io import load_vocabulary
+    from hyslam_tpu_torch.slam.system import default_vocab_path
+    from tools import eval_loop_pr_torch, train_synthetic_vocab_torch
+
+    failed = []
+
+    def gate(name, ok):
+        log(f"phase 13 gate {'ok' if ok else 'FAILED'}: {name}")
+        if not ok:
+            failed.append(name)
+
+    shipped = default_vocab_path()
+    with open(shipped, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    # the shipped tree's k and depth, and its corpus: a word seen in one
+    # image has the largest idf, ln(images), and the tool renders 2 poses a world
+    z = np.load(shipped)
+    k, depth = int(z["k"]), int(z["depth"])
+    images = int(round(float(np.exp(z["idf"].max()))))
+    os.makedirs(os.path.dirname(VOCAB13), exist_ok=True)
+    t0 = time.perf_counter()
+    train_synthetic_vocab_torch.main(["--worlds", str(images // 2), "--poses", "2", "--k", str(k),
+                                      "--depth", str(depth), "--out", VOCAB13])
+    train_s = time.perf_counter() - t0
+    voc = load_vocabulary(VOCAB13)
+    auc = {}
+    for name, path in (("trained", VOCAB13), ("shipped", shipped)):
+        out = os.path.join(os.path.dirname(VOCAB13), f"pr_{name}.json")
+        eval_loop_pr_torch.main(["--vocab", path, "--out", out])
+        with open(out) as f:
+            auc[name] = json.load(f)["auc_pr"]
+    log(f"phase 13: {voc.n_words} words (the shipped file's {z['idf'].shape[0]}), k {voc.k}, "
+        f"depth {voc.depth}, from {images // 2} worlds x 2 poses, trained in {train_s:.1f} s "
+        f"with its corpus; AUC-PR {auc['trained']:.4f}, the shipped vocabulary's "
+        f"{auc['shipped']:.4f}")
+    gate(f"k {voc.k}, depth {voc.depth}, {voc.n_words} words",
+         voc.k == k and voc.depth == depth and voc.n_words > k ** (depth - 1))
+    gate(f"AUC-PR {auc['trained']:.4f} >= the shipped vocabulary's {auc['shipped']:.4f} "
+         f"- {AUC_MARGIN13}", auc["trained"] >= auc["shipped"] - AUC_MARGIN13)
+    with open(shipped, "rb") as f:
+        gate("the shipped vocabulary's bytes unchanged",
+             hashlib.sha256(f.read()).hexdigest() == digest)
+    if failed:
+        raise AssertionError("phase 13 failed: " + "; ".join(failed))
+    return {"words": voc.n_words, "train_s": train_s, **{f"auc_{k}": v for k, v in auc.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3100,7 +3204,7 @@ def main() -> int:
     timed("0", phase0)
     k1 = timed("1", phase1, dev)
     cam, cfg = camera_and_config()
-    poses, pairs, pts = timed("render", render_sequence, cam, dev, N_TRACK)
+    poses, pairs, pts = timed("render", render_sequence, dev, N_TRACK)
     launches = timed("2-3", phase2, dev, cam, cfg, poses, pairs)
     tracked = timed("4", phase4, dev, cam, cfg, poses, pairs)
     launches5, async_lines, timing5 = timed("5", phase5, cam, cfg, poses, pairs, pts, tracked)
@@ -3111,6 +3215,8 @@ def main() -> int:
     launches += timed("9", phase9, cam, cfg, poses, pairs, pts)
     launches += timed("10", phase10, cam, cfg, poses, pairs, timing5)
     timed("11", phase11, cam, dev)
+    launches += timed("12", phase12)
+    timed("13", phase13)
     log(f"seconds a phase: {json.dumps(took)}")
     log(json.dumps({"kernels": [{
         "name": "pose_opt",

@@ -33,8 +33,12 @@ from hyslam_tpu_torch.slam.keyframe_policy import KeyFramePolicyParams  # noqa: 
 from hyslam_tpu_torch.slam.mapper import MapperParams  # noqa: E402
 from hyslam_tpu_torch.slam.system import System  # noqa: E402
 
+CAPS = MapCaps(K=512, L=32768, F=1024, O=8)
 
-def main(argv=None):
+
+def main(argv=None, caps: MapCaps = CAPS, on_frame=None):
+    """Run the driver on ``argv``; ``caps`` sizes the map's arenas and
+    ``on_frame(system)``, when given, is called after every fed frame."""
     ap = argparse.ArgumentParser()
     ap.add_argument("root", help="KITTI odometry root (contains sequences/)")
     ap.add_argument("--sequence", default="00")
@@ -56,7 +60,7 @@ def main(argv=None):
     ds = KittiOdometry(args.root, args.sequence)
     c = ds.calib
     cfg = SystemConfig(
-        caps=MapCaps(K=512, L=32768, F=1024, O=8),
+        caps=caps,
         run_data_dir=os.path.join(args.out, "run_data"),
         pipelined=args.mode == "pipelined", async_tracking=args.mode == "async",
         enable_loop_closing=not args.no_loop, device=dev,
@@ -81,6 +85,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     for fr in ds.frames(stop=stop):
         tel = slam.track_stereo(fr.img_left, fr.img_right, fr.timestamp)
+        if on_frame is not None:
+            on_frame(slam)
         times.append(fr.timestamp)
         if fr.gt_Tcw is not None:
             gt.append(fr.gt_Tcw)

@@ -133,8 +133,9 @@ def train_vocabulary_batched(descs: np.ndarray, k: int = 10, depth: int = 4,
                              doc_id: np.ndarray | None = None, seed: int = 0,
                              iters: int = 6, device=None) -> Vocabulary:
     """Level-parallel hierarchical k-medians for large corpora: every level
-    clusters all nodes at once, one [N, k] Hamming argmin an iteration (a
-    torch program on ``device``) and 256 bincounts for the bit medians.
+    clusters all nodes at once, one [N, k] Hamming argmin an iteration and
+    one scatter of the [N, 256] bits for the bit medians (torch programs on
+    ``device``; integer sums, so the order of the adds does not matter).
     doc_id [N] (e.g. the source image of each descriptor) enables idf
     weighting, idf = ln(n_docs / df_word), at least 1e-3."""
     dev = resolve_device(device)
@@ -142,8 +143,8 @@ def train_vocabulary_batched(descs: np.ndarray, k: int = 10, depth: int = 4,
     descs = np.ascontiguousarray(np.asarray(descs).view(np.uint32))
     d32 = descs.view(np.int32)
     N = len(descs)
-    bits = unpack_bits(torch.from_numpy(np.array(d32)), torch.uint8).numpy()  # [N,256]
     descs_t = torch.from_numpy(np.array(d32)).to(dev)
+    bits_t = unpack_bits(descs_t, torch.int32)                       # [N,256]
 
     centers_out = [np.zeros((1, 8), np.uint32)]     # node 0 = root
     children_out = [np.full((1, k), -1, np.int32)]
@@ -179,9 +180,8 @@ def train_vocabulary_batched(descs: np.ndarray, k: int = 10, depth: int = 4,
             a = assign_step(C, slt)
             flat = slot * k + a
             cnt = np.bincount(flat, minlength=M * k)
-            sums = np.empty((M * k, 256), np.int64)
-            for b in range(256):
-                sums[:, b] = np.bincount(flat, weights=bits[:, b], minlength=M * k)
+            sums = torch.zeros(M * k, 256, dtype=torch.int32, device=dev).index_add_(
+                0, torch.from_numpy(flat).to(dev), bits_t).cpu().numpy()
             nz = cnt > 0
             med = (sums[nz] * 2 > cnt[nz, None]).astype(np.uint8)
             newC = _pack_np(med).view(np.uint32).reshape(-1, 8)

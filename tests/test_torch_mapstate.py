@@ -15,18 +15,20 @@ from hyslam_tpu.core import mapstate as j_mapstate
 from hyslam_tpu.core import trajectory as j_traj
 from hyslam_tpu.core.frame import FrameFeatures as JFrameFeatures
 from hyslam_tpu.geometry import se3 as j_se3
+from hyslam_tpu.slam import mapper as j_mapper
 from hyslam_tpu_torch.core import mapstate, trajectory
 from hyslam_tpu_torch.core.frame import FrameFeatures
 from hyslam_tpu_torch.geometry import se3
+from hyslam_tpu_torch.slam import mapper
 
 from port_helpers import assert_tree_close, to_torch, tree_np
 
 torch.set_num_threads(2)
 
 JAX = SimpleNamespace(M=j_mapstate, se3=j_se3, TJ=j_traj, arr=jnp.asarray,
-                      FF=JFrameFeatures)
+                      FF=JFrameFeatures, mapper=j_mapper)
 TORCH = SimpleNamespace(M=mapstate, se3=se3, TJ=trajectory, arr=to_torch,
-                        FF=FrameFeatures)
+                        FF=FrameFeatures, mapper=mapper)
 CAPS = (8, 64, 32, 4)   # K, L, F, O of tests/test_mapstate.py
 ATOL = 1e-5
 
@@ -355,3 +357,82 @@ def test_recycled_row_drops_stale_names_of_other_maps():
     assert out["jax"][3] == lm_idx[0] and out["jax"][4] == lm_idx[1]      # aliases
     assert out["torch"][3] == out["torch"][4] == -1
     assert out["jax"][5] == out["torch"][5] == lm_idx[2]
+
+
+def test_recycled_row_leaves_no_alias():
+    """The mechanism behind the KITTI-layout soak's fall, at small L; the
+    port keeps the JAX package's behaviour, so within the active map the
+    recycled row does leave aliases, and both packages are held to the same
+    ones. Landmark A is fused into B, B is culled, and two mapper passes run
+    out B's RECYCLE_DELAY. A frame's association to B is held past the
+    culling and becomes a keyframe's name (the async loop inserts a keyframe
+    commit_lag frames after its frame was tracked, with that frame's
+    associations). Once every virgin row is taken, the next landmark C
+    recycles B's row: A (through its replaced_by), the keyframe's name and
+    a raw row index held outside the map then all resolve to C, an unrelated
+    landmark. A repair that cleared these names tracked the soak further but
+    less accurately (ROADMAP queue 3)."""
+    out = {}
+    for name, api in (("jax", JAX), ("torch", TORCH)):
+        M = api.M
+        ms, _, k1, lm_idx = two_kfs(api)
+        a, b = int(lm_idx[3]), int(lm_idx[2])
+        ms = M.replace_landmarks(ms, ivec(api, [a]), ivec(api, [b]), bvec(api, [True]))
+        ms = M.set_landmarks_bad(ms, bvec(api, np.arange(CAPS[1]) == b))
+        assoc = np.full(32, -1, np.int32)
+        assoc[7] = b                                   # the held association
+        ms, _ = M.add_keyframe(ms, feats(api, 8, 4), api.se3.identity(), 2.0, 2, 0,
+                               ivec(api, assoc))
+        for _ in range(2):                             # RECYCLE_DELAY mapper passes
+            ms = api.mapper.cull_landmarks(ms, 100, api.mapper.MapperParams())
+        n = int((~np.asarray(ms.lm.valid)).sum()) + 1
+        ms, got = M.add_landmarks(ms, api.arr(np.zeros((n, 3), np.float32)),
+                                  api.arr(np.asarray(ms.kf.desc)[0, :1].repeat(n, 0)), k1,
+                                  ivec(api, np.full(n, 20)), bvec(api, np.ones(n, bool)))
+        c = int(np.asarray(got)[-1])
+        out[name] = dict(b=b, c=c, a=int(np.asarray(M.resolve_landmarks(ms, ivec(api, [a])))[0]),
+                         held=int(np.asarray(M.resolve_landmarks(ms, ivec(api, [b])))[0]),
+                         kf_name=int(np.asarray(ms.kf.lm_id)[2, 7]))
+    j, t = out["jax"], out["torch"]
+    assert j["c"] == j["b"]                                   # C took B's row
+    assert j["a"] == j["kf_name"] == j["held"] == j["c"]      # the aliases
+    assert t == j
+
+
+def test_recycled_row_takes_a_virgin_rows_geometry():
+    """The other half of the mechanism: a recycled row keeps the dead
+    landmark's viewing direction and scale range until the next
+    update_landmark_stats, in both packages, while a virgin row has normal
+    0 and range [0, inf) (the view gate passes nothing with them). The
+    mapper's fusion projects a landmark in the pass that triangulated it, so
+    there the dead landmark's geometry sets the new one's view gate,
+    predicted level and search window. A repair that gave a recycled row a
+    virgin row's values took the soak's fall away on the CPU replay but
+    left the soak less accurate on the card (ROADMAP queue 3); the port
+    keeps the reference's values."""
+    out = {}
+    for name, api in (("jax", JAX), ("torch", TORCH)):
+        M = api.M
+        ms, _, k1, lm_idx = two_kfs(api)
+        ms = M.update_landmark_stats(ms)
+        dead = int(lm_idx[0])
+        ms = M.set_landmarks_bad(ms, bvec(api, np.arange(CAPS[1]) == dead))
+        ms = ms._replace(lm=ms.lm._replace(protection=ms.lm.protection * 0))
+        n = int((~np.asarray(ms.lm.valid)).sum()) + 1
+        ms, got = M.add_landmarks(ms, api.arr(np.zeros((n, 3), np.float32)),
+                                  api.arr(np.asarray(ms.kf.desc)[0, :1].repeat(n, 0)), k1,
+                                  ivec(api, np.full(n, 20)), bvec(api, np.ones(n, bool)))
+        got = np.asarray(got)
+        geo = [np.asarray(x) for x in (ms.lm.normal, ms.lm.min_dist, ms.lm.max_dist)]
+        out[name] = dict(dead=dead, recycled=int(got[-1]), virgin=int(got[0]),
+                         rec=[g[got[-1]] for g in geo], vir=[g[got[0]] for g in geo])
+    j, t = out["jax"], out["torch"]
+    assert j["recycled"] == t["recycled"] == j["dead"] == t["dead"]
+    assert j["virgin"] == t["virgin"]
+    for side in (j, t):
+        assert side["rec"][0][2] > 0.99                                  # the dead one's
+        assert 0 < side["rec"][1] < side["rec"][2] < np.inf
+        np.testing.assert_array_equal(side["vir"][0], [0.0, 0.0, 0.0])   # a virgin row's
+        assert side["vir"][1] == 0.0 and side["vir"][2] == np.inf
+    for g_j, g_t in zip(j["rec"], t["rec"]):
+        np.testing.assert_allclose(g_t, g_j, atol=ATOL)

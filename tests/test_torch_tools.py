@@ -9,6 +9,7 @@
   within 1 mm (of the 16-bit depth * 5000) elsewhere where both have one;
 - examples/run_kitti_torch.py on a short rendered KITTI-layout sequence
   (async, the CPU): its JSON has the JAX driver's keys and more;
+- tools/kitti_soak_probe_torch.py's records of a small map state and path;
 - the tools and drivers import neither JAX nor the JAX package;
 - (slow) the 80-frame soak of tests/test_soak.py through the port's driver,
   with its bounds.
@@ -34,7 +35,8 @@ NEW_MODULES = ["tools.make_synthetic_dataset_torch", "tools.bench_multihost_torc
                "examples.torch_common",
                "examples.run_kitti_torch", "examples.run_tum_torch",
                "examples.run_synthetic_torch", "examples.run_euroc_torch",
-               "examples.run_dual_camera_torch"]
+               "examples.run_dual_camera_torch", "tools.kitti_soak_probe_torch",
+               "tools.train_synthetic_vocab_torch"]
 JAX_KITTI_KEYS = {"dataset", "sequence", "mode", "frames_fed", "frames_tracked",
                   "tracked_fraction", "fps", "wall_s", "ate_rmse_m", "rpe_trans_m",
                   "rpe_rot_deg"}
@@ -115,6 +117,60 @@ def test_run_kitti_torch_writes_its_soak_json(tmp_path):
     assert rep["ate_rmse_m"] < 0.1, rep
     assert (tmp_path / "out" / "tracking_async.txt").read_text().count("\n") == 7
     assert (tmp_path / "out" / "map.npz").exists()
+
+
+def test_kitti_soak_probe_writes_its_rows(tmp_path):
+    """tools/kitti_soak_probe_torch.py's records, without a run: the arena's
+    counts of a small map state (a bad landmark named by a keyframe),
+    the trajectory's record of a path with one frame 1 m off, and both
+    written and read back."""
+    import torch
+
+    from hyslam_tpu_torch.core import mapstate
+    from hyslam_tpu_torch.core.frame import FrameFeatures
+    from hyslam_tpu_torch.geometry import se3
+    from tools.kitti_soak_probe_torch import COLUMNS, arena_row, trajectory_record, write_records
+
+    rng = np.random.default_rng(0)
+    F = 32
+
+    def feats(n):
+        return FrameFeatures(
+            uv=torch.from_numpy(rng.uniform(0, 640, (F, 2)).astype(np.float32)),
+            ur=torch.full((F,), -1.0), depth=torch.full((F,), -1.0),
+            level=torch.zeros(F, dtype=torch.int32), angle=torch.zeros(F),
+            desc=torch.from_numpy(rng.integers(0, 2**31, (F, 8), dtype=np.int32)),
+            valid=torch.arange(F) < n)
+
+    ms = mapstate.empty_map_state(mapstate.MapCaps(8, 64, F, 4))
+    f0 = feats(20)
+    none = torch.full((F,), -1, dtype=torch.int32)
+    ms, k0 = mapstate.add_keyframe(ms, f0, se3.identity(), 0.0, 0, 0, none, origin=True)
+    ms, lm = mapstate.add_landmarks(ms, torch.tile(torch.tensor([0.0, 0.0, 5.0]), (F, 1)),
+                                    f0.desc, k0, torch.arange(F, dtype=torch.int32),
+                                    torch.arange(F) < 15)
+    ms = mapstate.set_landmarks_bad(ms, torch.arange(64) == int(lm[0]))
+    assoc = torch.where(torch.arange(F) < 5, lm, -1).to(torch.int32)   # lm[0] held
+    ms, _ = mapstate.add_keyframe(ms, feats(10), se3.identity(), 1.0, 1, 0, assoc)
+    virgin, live, recyclable, bad_names, not_held, younger = arena_row(ms)
+    assert (virgin, live, bad_names, not_held, younger) == (49, 14, 1, 0, 0)
+    assert recyclable in (0, 1)
+
+    frame = np.arange(150)
+    gt = np.tile(np.eye(4), (150, 1, 1))
+    gt[:, 2, 3] = -0.8 * frame
+    est = gt.copy()
+    est[120, 0, 3] += 1.0
+    rec = trajectory_record(est, gt, frame)
+    assert [f for f, _ in rec["steps_off"]] == [120, 121]
+    assert abs(rec["steps_off"][0][1] - 1.0) < 1e-9
+    assert list(rec["segment_ate_se3"]) == ["0-99", "100-199"]
+    assert rec["segment_ate_se3"]["0-99"] < 1e-3 < rec["segment_ate_se3"]["100-199"]
+
+    write_records(str(tmp_path), [(0,) + arena_row(ms)], rec)
+    rows = np.loadtxt(tmp_path / "probe.tsv", skiprows=1, ndmin=2).astype(int)
+    assert rows.shape == (1, len(COLUMNS)) and rows[0, 1] == 49
+    assert json.loads((tmp_path / "probe.json").read_text())["steps_off"][0][0] == 120
 
 
 def test_tools_and_drivers_import_without_jax():

@@ -57,7 +57,7 @@ def main() -> int:
     kernels.load()
     dev = torch.device("cuda", 0)
     cam, cfg = c.camera_and_config()
-    poses, pairs, _ = c.render_sequence(cam, dev, c.N_TRACK)
+    poses, pairs, _ = c.render_sequence(dev, c.N_TRACK)
     sensors = synth.render_sensors(poses, seed=0, gps_sigma=c.GPS_SIGMA)
     sysm = c.make_system(cam, cfg, optimizer=OptimizerInfo(**c.SENSOR_WEIGHTS))
     tr = sysm.trackers["SLAM"]

@@ -151,7 +151,7 @@ def run_one(variant: str) -> dict:
     sched = context_sched_flags()
     c.phase0()
     cam, cfg = c.camera_and_config()
-    poses, pairs, _ = c.render_sequence(cam, torch.device("cuda", 0), c.N_TRACK)
+    poses, pairs, _ = c.render_sequence(torch.device("cuda", 0), c.N_TRACK)
     clock = ReadClock(torch)
     pipelined = "sync" not in parts
     if "mapstream" in parts:
