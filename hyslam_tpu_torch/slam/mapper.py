@@ -32,6 +32,7 @@ from hyslam_tpu_torch.geometry.triangulation import projection_matrix, triangula
 from hyslam_tpu_torch.ops import indexing as ix
 from hyslam_tpu_torch.slam.sensor_fusion import pose_priors_numpy, priors_to_device
 from hyslam_tpu_torch.solver.ba import BAObservations, BAProblem, CamArrays, local_ba_two_phase
+from hyslam_tpu_torch.utils.telemetry import OFF, StageTimer
 
 
 class MapperParams(NamedTuple):
@@ -178,9 +179,10 @@ def _triangulate_pair(ms: MapState, k1, k2, cam: Camera, cam2: Camera,
 
 def triangulate_new_landmarks(ms: MapState, kf_id: int, cam: Camera,
                               params: MapperParams, is_mono: bool = False,
-                              scale_factor: float = 1.2):
+                              scale_factor: float = 1.2, span=OFF):
     """Triangulate against the best covisible neighbours with enough
-    baseline, one neighbour after another. Returns (ms, n_new)."""
+    baseline, one neighbour after another; the pairs tried are noted on
+    ``span`` (the tracer's). Returns (ms, n_new)."""
     nn = params.triang_nn_mono if is_mono else params.triang_nn_stereo
     ids, _ = M.covis_neighbors(ms, kf_id, nn, min_weight=1)
     centers = M.camera_centers(ms)
@@ -193,7 +195,9 @@ def triangulate_new_landmarks(ms: MapState, kf_id: int, cam: Camera,
     else:
         gate = baseline >= cam.baseline
     n_total = torch.zeros((), dtype=torch.int32, device=ids.device)
-    for k2 in idc[(ids >= 0) & gate].tolist():
+    pairs = idc[(ids >= 0) & gate].tolist()
+    span.note("pairs", len(pairs))
+    for k2 in pairs:
         ms, n = _triangulate_pair(ms, kf_id, k2, cam, cam, params,
                                   scale_factor=scale_factor)
         n_total = n_total + n
@@ -239,11 +243,12 @@ MAX_FUSE_TARGETS = 16   # cap on the deduped 1st+2nd-degree target set
 
 
 def fuse_landmarks(ms: MapState, kf_id: int, cam: Camera, params: MapperParams,
-                   n_levels: int = 8, scale_factor: float = 1.2):
+                   n_levels: int = 8, scale_factor: float = 1.2, span=OFF):
     """LandMarkFuser::run: fuse this keyframe's landmarks into its 1st+2nd
     degree covisibility neighbourhood (at most MAX_FUSE_TARGETS targets,
     ordered by covisibility weight) and the 1st-degree neighbours'
-    landmarks into it. Returns (ms, n_replaced, n_added)."""
+    landmarks into it; the ``_fuse_into_kf`` calls of both passes are noted
+    on ``span``. Returns (ms, n_replaced, n_added)."""
     K = ms.K
     dev = ms.covis.device
     ids, _ = M.covis_neighbors(ms, kf_id, params.fuse_nn, min_weight=1)
@@ -269,16 +274,18 @@ def fuse_landmarks(ms: MapState, kf_id: int, cam: Camera, params: MapperParams,
     own = ix.take(ms.kf.lm_id, kf_id)
     n_rep = torch.zeros((), dtype=torch.int32, device=dev)
     n_add = n_rep
+    n_calls = 0
     for t, en in zip(targets, t_ok):
         if en:
             ms, r, a = _fuse_into_kf(ms, t, own, cam, n_levels=n_levels,
                                      scale_factor=scale_factor)
-            n_rep, n_add = n_rep + r, n_add + a
+            n_rep, n_add, n_calls = n_rep + r, n_add + a, n_calls + 1
     for t, en, first in zip(targets, t_ok, t_first):
         if en and first:
             ms, r, a = _fuse_into_kf(ms, kf_id, ms.kf.lm_id[t], cam, n_levels=n_levels,
                                      scale_factor=scale_factor)
-            n_rep, n_add = n_rep + r, n_add + a
+            n_rep, n_add, n_calls = n_rep + r, n_add + a, n_calls + 1
+    span.note("fuse_calls", n_calls)
     ms = M.update_landmark_stats(ms)
     ms = M.refresh_covisibility(ms)
     return ms, n_rep, n_add
@@ -504,21 +511,26 @@ def cull_keyframes(ms: MapState, kf_id: int, cam: Camera, params: MapperParams):
 
 def _integrate_core(ms: MapState, kf_id: int, params: MapperParams, cam: Camera,
                     is_mono: bool, do_optional: bool, n_levels: int = 8,
-                    scale_factor: float = 1.2):
+                    scale_factor: float = 1.2, timer: StageTimer = OFF):
     """Mandatory jobs (covisibility / spanning / stats refresh + landmark
-    culling) and the optional triangulate and fuse jobs. Returns (ms,
-    stats [3] int32: triangulated, fused, fuse_added)."""
-    ms = M.refresh_covisibility(ms)
-    ms = M.compute_spanning_parents(ms)
-    ms = M.update_landmark_stats(ms)
-    ms = cull_landmarks(ms, kf_id, params, is_mono)
+    culling) and the optional triangulate and fuse jobs, each a span of
+    ``timer`` (``OFF``: none). Returns (ms, stats [3] int32: triangulated, fused,
+    fuse_added)."""
+    with timer.span("mapper.refresh"):
+        ms = M.refresh_covisibility(ms)
+        ms = M.compute_spanning_parents(ms)
+        ms = M.update_landmark_stats(ms)
+    with timer.span("mapper.cull_lm"):
+        ms = cull_landmarks(ms, kf_id, params, is_mono)
     z = torch.zeros((), dtype=torch.int32, device=ms.covis.device)
     n_tri, n_rep, n_add = z, z, z
     if do_optional:
-        ms, n_tri = triangulate_new_landmarks(ms, kf_id, cam, params, is_mono,
-                                              scale_factor)
-        ms, n_rep, n_add = fuse_landmarks(ms, kf_id, cam, params, n_levels,
-                                          scale_factor)
+        with timer.span("mapper.triangulate") as sp:
+            ms, n_tri = triangulate_new_landmarks(ms, kf_id, cam, params, is_mono,
+                                                  scale_factor, span=sp)
+        with timer.span("mapper.fuse") as sp:
+            ms, n_rep, n_add = fuse_landmarks(ms, kf_id, cam, params, n_levels,
+                                              scale_factor, span=sp)
     return ms, torch.stack([n_tri, n_rep, n_add])
 
 
@@ -541,12 +553,14 @@ class Mapper:
     default) everything. It and ``cull_kfs`` are kept for parity with the
     JAX mapper: no path of the port lowers them, since the threaded
     pipeline drains its mapping stage before every insertion and so never
-    has a keyframe waiting."""
+    has a keyframe waiting. Each call is a span ``mapper`` of the tracer
+    ``timer`` (its tracker's), each job a span ``mapper.<job>`` in it."""
 
     def __init__(self, cam: Camera, params: MapperParams | None = None,
                  is_mono: bool = False, n_levels: int = 8,
-                 scale_factor: float = 1.2):
+                 scale_factor: float = 1.2, timer: StageTimer = OFF):
         self.cam = cam
+        self.timer = timer
         self.params = params or MapperParams()
         self.is_mono = is_mono
         self.n_levels = n_levels
@@ -574,37 +588,42 @@ class Mapper:
         ``self.n_prior_ba``. ``cam_table`` goes to local BA (per-keyframe
         intrinsics through ``cam_id``; None: this mapper's camera for all)."""
         kf_id = int(kf_id)
-        stats = {}
-        p = self.params
-        ms, counters = _integrate_core(ms, kf_id, p, self.cam, self.is_mono,
-                                       budget_level >= 1, self.n_levels, self.scale_factor)
-        if budget_level >= 2 and self.kf_count > 2:
-            if has_priors is None:
-                has_priors = _has_priors(ms, sensors)
-            # 16 local keyframes / 2048 landmarks, as the JAX package's caps
-            if has_priors:
-                ms, cost = local_bundle_adjustment(
-                    ms, kf_id, self.cam, max_local_kf=16, max_lm=2048, sensors=sensors,
-                    opt_info=opt_info, n_levels=self.n_levels,
-                    scale_factor=self.scale_factor, cam_table=cam_table)
-                self.n_prior_ba += 1
-            else:
-                ms, cost = _local_ba_noprior(ms, kf_id, self.cam, 16, 2048,
-                                             self.n_levels, self.scale_factor, cam_table)
-            if cull_kfs and not self.is_mono:
-                ms, n_cull = cull_keyframes(ms, kf_id, self.cam, p)
-                counters = torch.cat([counters, n_cull[None]])
-            if fetch_stats:
-                stats["ba_cost"] = cost
-        self.kf_count += 1
-        if not fetch_stats:
-            stats["counters"] = counters
+        with self.timer.span("mapper"):
+            stats = {}
+            p = self.params
+            ms, counters = _integrate_core(ms, kf_id, p, self.cam, self.is_mono,
+                                           budget_level >= 1, self.n_levels, self.scale_factor,
+                                           self.timer)
+            if budget_level >= 2 and self.kf_count > 2:
+                with self.timer.span("mapper.local_ba") as ba:
+                    if has_priors is None:
+                        has_priors = _has_priors(ms, sensors)
+                    ba.note("prior", bool(has_priors))
+                    # 16 local keyframes / 2048 landmarks, as the JAX package's caps
+                    if has_priors:
+                        ms, cost = local_bundle_adjustment(
+                            ms, kf_id, self.cam, max_local_kf=16, max_lm=2048, sensors=sensors,
+                            opt_info=opt_info, n_levels=self.n_levels,
+                            scale_factor=self.scale_factor, cam_table=cam_table)
+                        self.n_prior_ba += 1
+                    else:
+                        ms, cost = _local_ba_noprior(ms, kf_id, self.cam, 16, 2048,
+                                                     self.n_levels, self.scale_factor, cam_table)
+                if cull_kfs and not self.is_mono:
+                    with self.timer.span("mapper.cull_kf"):
+                        ms, n_cull = cull_keyframes(ms, kf_id, self.cam, p)
+                    counters = torch.cat([counters, n_cull[None]])
+                if fetch_stats:
+                    stats["ba_cost"] = cost
+            self.kf_count += 1
+            if not fetch_stats:
+                stats["counters"] = counters
+                return ms, stats
+            c = counters.tolist()
+            if budget_level >= 1:
+                stats["triangulated"], stats["fused"], stats["fuse_added"] = c[:3]
+            if len(c) > 3:
+                stats["kf_culled"] = c[3]
+            if "ba_cost" in stats:
+                stats["ba_cost"] = float(stats["ba_cost"])
             return ms, stats
-        c = counters.tolist()
-        if budget_level >= 1:
-            stats["triangulated"], stats["fused"], stats["fuse_added"] = c[:3]
-        if len(c) > 3:
-            stats["kf_culled"] = c[3]
-        if "ba_cost" in stats:
-            stats["ba_cost"] = float(stats["ba_cost"])
-        return ms, stats

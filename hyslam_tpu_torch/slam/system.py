@@ -109,9 +109,11 @@ class System:
     ``config.run_data_dir`` set it writes the TSV telemetry logs and the
     annotated frame dumps (not in async mode). With ``config.pipelined``
     the frames go through the threaded pipeline, see the module
-    docstring."""
+    docstring. ``timer`` is the System's tracer (``utils/telemetry.py``),
+    shared with its trackers and their mappers: off unless ``trace=True`` or
+    ``timer.enabled`` is set."""
 
-    def __init__(self, config: SystemConfig | None = None):
+    def __init__(self, config: SystemConfig | None = None, trace: bool = False):
         self.config = config or SystemConfig()
         self.device = (torch.device(self.config.device)
                        if self.config.device is not None else default_device())
@@ -124,7 +126,7 @@ class System:
         self._shutdown = False
         self._tracking_log = None
         self._mapping_log = None
-        self.timer = None
+        self.timer = StageTimer(enabled=trace)
         self._open_logs()
         self._families = {}   # per-camera feature family
         self._init_families = {}   # the monocular initializer's, per camera
@@ -163,6 +165,7 @@ class System:
             commit_lag=self.config.commit_lag,
             mapper_params=self.config.mapper,
             device=self.device,
+            timer=self.timer,
         )
         self._pending_kfs[name] = []
         if self.config.async_tracking:
@@ -209,16 +212,19 @@ class System:
         made from this frame."""
         cc = self.config.cameras[camera]
         cam = self.cameras[camera]
-        with self._host_turn():
-            il = self._image(img_left, cam.scale)
-            ir = self._image(img_right, cam.scale)
-            feats2 = self._families[camera].extract_batch(
-                torch.stack([il, ir]), capacity=self._capacity(cc))
-            fl = FrameFeatures(*(x[0] for x in feats2))
-            fr = FrameFeatures(*(x[1] for x in feats2))
-            fl = match_stereo_refined(fl, fr, il, ir, bf=cam.bf)
-            self._maybe_dump_frame(camera, il, fl)
-        return self.track_features(fl, timestamp, camera, frame_id, sensor_data)
+        with self._frame_span(frame_id):
+            with self._host_turn(), self.timer.span("frontend"):
+                il = self._image(img_left, cam.scale)
+                ir = self._image(img_right, cam.scale)
+                with self.timer.span("frontend.extract"):
+                    feats2 = self._families[camera].extract_batch(
+                        torch.stack([il, ir]), capacity=self._capacity(cc))
+                fl = FrameFeatures(*(x[0] for x in feats2))
+                fr = FrameFeatures(*(x[1] for x in feats2))
+                with self.timer.span("frontend.stereo"):
+                    fl = match_stereo_refined(fl, fr, il, ir, bf=cam.bf)
+                self._maybe_dump_frame(camera, il, fl)
+            return self._track_features(fl, timestamp, camera, frame_id, sensor_data)
 
     def track_rgbd(self, img, depth, timestamp: float, camera: str = "SLAM",
                    frame_id: int | None = None, sensor_data=None):
@@ -231,26 +237,28 @@ class System:
         non-finite = no reading) at the image's native resolution."""
         cc = self.config.cameras[camera]
         cam = self.cameras[camera]
-        with self._host_turn():
-            gray = self._image(img, cam.scale)
-            feats = self._families[camera].extract(gray, capacity=self._capacity(cc))
-            if not isinstance(depth, torch.Tensor):
-                depth = torch.from_numpy(np.ascontiguousarray(depth))
-            dep = depth.to(device=self.device, dtype=torch.float32)
-            H0, W0 = dep.shape
-            uv0 = feats.uv / cam.scale            # native-resolution coordinates
-            ui = torch.round(uv0[:, 0]).to(torch.int64).clamp(0, W0 - 1)
-            vi = torch.round(uv0[:, 1]).to(torch.int64).clamp(0, H0 - 1)
-            z = dep[vi, ui]
-            ok = feats.valid & torch.isfinite(z) & (z > 0.05)
-            # a true division: a Python number over a tensor would multiply by
-            # the tensor's reciprocal, one rounding more
-            disparity = torch.full_like(z, cam.bf) / torch.clamp_min(z, 1e-6)
-            feats = feats._replace(
-                ur=torch.where(ok, feats.uv[:, 0] - disparity, -1.0),
-                depth=torch.where(ok, z, -1.0))
-            self._maybe_dump_frame(camera, gray, feats)
-        return self.track_features(feats, timestamp, camera, frame_id, sensor_data)
+        with self._frame_span(frame_id):
+            with self._host_turn(), self.timer.span("frontend"):
+                gray = self._image(img, cam.scale)
+                with self.timer.span("frontend.extract"):
+                    feats = self._families[camera].extract(gray, capacity=self._capacity(cc))
+                if not isinstance(depth, torch.Tensor):
+                    depth = torch.from_numpy(np.ascontiguousarray(depth))
+                dep = depth.to(device=self.device, dtype=torch.float32)
+                H0, W0 = dep.shape
+                uv0 = feats.uv / cam.scale            # native-resolution coordinates
+                ui = torch.round(uv0[:, 0]).to(torch.int64).clamp(0, W0 - 1)
+                vi = torch.round(uv0[:, 1]).to(torch.int64).clamp(0, H0 - 1)
+                z = dep[vi, ui]
+                ok = feats.valid & torch.isfinite(z) & (z > 0.05)
+                # a true division: a Python number over a tensor would multiply
+                # by the tensor's reciprocal, one rounding more
+                disparity = torch.full_like(z, cam.bf) / torch.clamp_min(z, 1e-6)
+                feats = feats._replace(
+                    ur=torch.where(ok, feats.uv[:, 0] - disparity, -1.0),
+                    depth=torch.where(ok, z, -1.0))
+                self._maybe_dump_frame(camera, gray, feats)
+            return self._track_features(feats, timestamp, camera, frame_id, sensor_data)
 
     def track_monocular(self, img, timestamp: float, camera: str = "SLAM",
                         frame_id: int | None = None, sensor_data=None):
@@ -258,14 +266,17 @@ class System:
         tracker initializes, the extractor takes ``init_feature_factor``
         times the features (capped at the arena's F)."""
         cc = self.config.cameras[camera]
-        with self._host_turn():
-            gray = self._image(img, self.cameras[camera].scale)
-            fam = self._families[camera]
-            if self.trackers[camera].state == State.INITIALIZE and cc.init_feature_factor > 1:
-                fam = self._init_family(camera)
-            feats = fam.extract(gray, capacity=self._capacity(cc))
-            self._maybe_dump_frame(camera, gray, feats)
-        return self.track_features(feats, timestamp, camera, frame_id, sensor_data)
+        with self._frame_span(frame_id):
+            with self._host_turn(), self.timer.span("frontend"):
+                gray = self._image(img, self.cameras[camera].scale)
+                fam = self._families[camera]
+                if (self.trackers[camera].state == State.INITIALIZE
+                        and cc.init_feature_factor > 1):
+                    fam = self._init_family(camera)
+                with self.timer.span("frontend.extract"):
+                    feats = fam.extract(gray, capacity=self._capacity(cc))
+                self._maybe_dump_frame(camera, gray, feats)
+            return self._track_features(feats, timestamp, camera, frame_id, sensor_data)
 
     def track_features(self, feats: FrameFeatures, timestamp: float,
                        camera: str = "SLAM", frame_id: int | None = None,
@@ -276,6 +287,16 @@ class System:
         pipelined mode None: the frame is queued to the tracking thread
         (blocking while the queue holds 2) and its row appears in
         ``_pipe.telemetry`` once tracked."""
+        with self._frame_span(frame_id):
+            return self._track_features(feats, timestamp, camera, frame_id, sensor_data)
+
+    def _frame_span(self, frame_id: int | None):
+        """The tracer's root span of one ``track_*`` call: the frame's id is
+        the one given, else the System's counter (as ``track_features``
+        assigns it)."""
+        return self.timer.span("frame", self._frame_counter if frame_id is None else frame_id)
+
+    def _track_features(self, feats, timestamp, camera, frame_id, sensor_data):
         if self._shutdown:
             raise RuntimeError("System is shut down")
         if frame_id is None:
@@ -581,7 +602,6 @@ class System:
         d = self.config.run_data_dir
         self._tracking_log = TrackingLog(os.path.join(d, "tracking_data.txt"))
         self._mapping_log = MappingLog(os.path.join(d, "localmapping_data.txt"))
-        self.timer = StageTimer()
 
     def _close_logs(self):
         if self._tracking_log is not None:

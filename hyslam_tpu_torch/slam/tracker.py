@@ -75,6 +75,7 @@ from hyslam_tpu_torch.slam.strategies import (
     track_normal_step,
 )
 from hyslam_tpu_torch.slam.tracking_params import TrackingParams
+from hyslam_tpu_torch.utils.telemetry import OFF, StageTimer
 
 
 class State(enum.Enum):
@@ -156,6 +157,8 @@ class Tracker:
                                    # sync(tracker), defer(); None: no pipeline
     mapper_params: MapperParams = field(default_factory=MapperParams)
     device: object = None         # where the map state lives (default: the card)
+    timer: StageTimer = OFF       # the tracer, shared with the mapper
+                                  # (OFF: always off)
 
     def __post_init__(self):
         # fault injection configured through the params tree; the explicit
@@ -170,7 +173,7 @@ class Tracker:
         self.traj = TJ.empty_trajectory(device=self.device)
         self.mapper = Mapper(self.cam, params=self.mapper_params,
                              is_mono=self.is_mono, n_levels=self.n_levels,
-                             scale_factor=self.scale_factor)
+                             scale_factor=self.scale_factor, timer=self.timer)
         self.state = State.INITIALIZE
         self.last_feats: Optional[FrameFeatures] = None
         self.last_lm_id = None
@@ -210,15 +213,16 @@ class Tracker:
         tel = TrackerTelemetry(frame_id=frame_id, state=self.state.name)
         self.n_frames += 1
         self._pending_sensor = sensor_data
-        if self.state == State.INITIALIZE:
-            self._do_initialize(feats, timestamp, frame_id, tel)
-        elif self.state in (State.NORMAL, State.POSTINIT):
-            self._do_normal(feats, timestamp, frame_id, tel)
-        elif self.state == State.REINITIALIZE:
-            self._do_reinitialize(feats, timestamp, frame_id, tel)
-        elif self.state == State.RELOCALIZE:
-            self._do_relocalize(feats, timestamp, frame_id, tel)
-        # State.NULL: the frame is counted and nothing else
+        with self.timer.span("track", frame_id):
+            if self.state == State.INITIALIZE:
+                self._do_initialize(feats, timestamp, frame_id, tel)
+            elif self.state in (State.NORMAL, State.POSTINIT):
+                self._do_normal(feats, timestamp, frame_id, tel)
+            elif self.state == State.REINITIALIZE:
+                self._do_reinitialize(feats, timestamp, frame_id, tel)
+            elif self.state == State.RELOCALIZE:
+                self._do_relocalize(feats, timestamp, frame_id, tel)
+            # State.NULL: the frame is counted and nothing else
         self.telemetry.append(tel)
         return tel
 
@@ -385,14 +389,15 @@ class Tracker:
         """Add the frame as a keyframe, seed its close stereo points (a
         stereo camera's), and run the mapper's jobs on it. Returns the
         keyframe id, or -1 when the keyframe arena is full."""
-        kf_id = int(self.ms.next_kf)
-        if kf_id >= self.caps.K:
-            return -1
-        ms, _ = M.add_keyframe(self.ms, feats, tr.Tcw, timestamp, frame_id,
-                               self.cam_id, tr.lm_id)
-        if not self.is_mono:
-            ms, n_seeded = seed_close_landmarks(ms, kf_id, self.cam)
-            tel.n_seeded = int(n_seeded)
+        with self.timer.span("kf_insert"):
+            kf_id = int(self.ms.next_kf)
+            if kf_id >= self.caps.K:
+                return -1
+            ms, _ = M.add_keyframe(self.ms, feats, tr.Tcw, timestamp, frame_id,
+                                   self.cam_id, tr.lm_id)
+            if not self.is_mono:
+                ms, n_seeded = seed_close_landmarks(ms, kf_id, self.cam)
+                tel.n_seeded = int(n_seeded)
         sensors = self.sensors      # the mapper's local BA: without this reading
         self._attach_sensor(kf_id, self._pending_sensor)
         self.ms, tel.mapper_stats = self._integrate(ms, kf_id, sensors=sensors,
@@ -429,10 +434,11 @@ class Tracker:
         min_inl = (self.params.normal.thresh_refine_postreloc
                    if self.frames_since_reloc < 30
                    else self.params.normal.thresh_refine)
-        out = track_normal_step(
-            self.cam, feats, timestamp, self.traj, self._dev, self.ms, min_inl,
-            n_levels=self.n_levels, scale_factor=self.scale_factor,
-            params=self.params)
+        with self.timer.span("track", frame_id):
+            out = track_normal_step(
+                self.cam, feats, timestamp, self.traj, self._dev, self.ms, min_inl,
+                n_levels=self.n_levels, scale_factor=self.scale_factor,
+                params=self.params)
         self.traj = out.traj
         self._dev = out.dev
         scalars, fetched = self._fetch(out.scalars)
@@ -467,10 +473,11 @@ class Tracker:
     def _read(self, p: _Pending) -> list:
         """A pending frame's counters, waiting for its fetch (not for the
         device) where it has not landed yet."""
-        if p.fetched is None:
-            return p.scalars.tolist()
-        p.fetched.synchronize()
-        s = p.scalars.tolist()
+        with self.timer.span("commit.wait"):
+            if p.fetched is None:
+                return p.scalars.tolist()
+            p.fetched.synchronize()
+            s = p.scalars.tolist()
         self._fetch_free.append((p.scalars, p.fetched))
         return s
 
@@ -507,6 +514,10 @@ class Tracker:
         run the host state machine for it (loss, keyframe policy, telemetry),
         ``commit_lag`` frames late."""
         p = self._pending.popleft()
+        with self.timer.span("commit"):
+            return self._commit(p)
+
+    def _commit(self, p: _Pending):
         s = self._read(p)
         tel = TrackerTelemetry(frame_id=p.frame_id, state=p.state_name,
                                n_motion=s[0], n_inliers=s[2], n_local=s[3])
@@ -562,10 +573,11 @@ class Tracker:
         the allocation cursor, and the counters are not fetched: this adds
         no read of its own to the mapper's."""
         kf_id = self._kf_mirror
-        ms, _ = M.add_keyframe(self.ms, p.feats, p.Tcw, p.timestamp, p.frame_id,
-                               self.cam_id, p.lm_id)
-        if not self.is_mono:
-            ms, _ = seed_close_landmarks(ms, kf_id, self.cam)
+        with self.timer.span("kf_insert"):
+            ms, _ = M.add_keyframe(self.ms, p.feats, p.Tcw, p.timestamp, p.frame_id,
+                                   self.cam_id, p.lm_id)
+            if not self.is_mono:
+                ms, _ = seed_close_landmarks(ms, kf_id, self.cam)
         self._kf_mirror += 1
         self._attach_sensor(kf_id, p.sensor_data)
         ms, stats = self._integrate(

@@ -1,22 +1,25 @@
-"""Structured run telemetry: TSV logs, stage timing and device profiling
-(counterpart of ``hyslam_tpu/utils/telemetry.py``, same TSV columns).
+"""Structured run telemetry: TSV logs and the program's tracer (counterpart
+of ``hyslam_tpu/utils/telemetry.py``, same TSV columns).
 
 - ``tracking_data.txt``: one row per frame (camera, frame id, state,
   inlier and match counts, map sizes, the keyframe-insertion outcome).
 - ``localmapping_data.txt``: per-keyframe job counters (triangulated and
   fused landmark counts, BA cost, culled keyframes).
-- ``StageTimer``: accumulating wall-clock spans per pipeline stage; a span
-  is also a ``torch.profiler.record_function`` range, so it shows up in a
-  trace taken with ``device_trace``.
+- ``StageTimer``: the tracer. Spans of the System's layers and the
+  mapper's jobs, kept in memory with their nesting, frame id and counters;
+  each is also a ``torch.profiler`` range ``hyslam:<name>``, on the clock
+  of the device trace.
 """
 
 from __future__ import annotations
 
-import contextlib
 import os
+import threading
 import time
-from dataclasses import dataclass, field
+from collections import deque
 from typing import IO
+
+from torch.autograd.profiler import record_function
 
 TRACKING_COLUMNS = [
     "camera", "frame_id", "timestamp", "state", "n_motion", "n_inliers",
@@ -78,53 +81,113 @@ class MappingLog(_TSVLog):
         })
 
 
-@dataclass
+
+
+class _Off:
+    """The span of a tracer that is off: enters, exits and notes nothing.
+    It is also a tracer that is always off (``span`` returns itself), the
+    default of a ``Mapper`` or ``Tracker`` built without one: it holds no
+    state, so nothing it is shared by can turn it on."""
+
+    __slots__ = ()
+
+    def span(self, name, frame=None):
+        return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return None
+
+    def note(self, key, value) -> None:
+        pass
+
+
+OFF = _Off()
+
+
+class Span:
+    """One span's record: ``name``; ``start_ns`` and ``end_ns`` from
+    ``time.perf_counter_ns`` (``end_ns`` None while open); ``id``, the
+    tracer's running count; ``parent``, the id of the span open around it on
+    the same thread (-1: none); ``frame``, the frame id it belongs to (its
+    own where given, else its parent's, else -1); ``thread``, the thread's
+    ident; ``counters``, host-known counts noted on it (None: none). While
+    open it is also a ``torch.profiler`` range ``hyslam:<name>``, so a
+    profiler's trace holds it and puts it on the device trace's clock."""
+
+    __slots__ = ("id", "name", "start_ns", "end_ns", "parent", "frame", "thread",
+                 "counters", "_stack", "_range")
+
+    def __init__(self, span_id: int, name: str, parent, frame, stack: list):
+        self.id = span_id
+        self.name = name
+        self.parent = -1 if parent is None else parent.id
+        self.frame = frame if frame is not None else (-1 if parent is None else parent.frame)
+        self.thread = threading.get_ident()
+        self.counters = None
+        self.start_ns = self.end_ns = None
+        self._stack = stack
+        self._range = None
+
+    def note(self, key: str, value) -> None:
+        """Attach a host-known count to the span."""
+        if self.counters is None:
+            self.counters = {}
+        self.counters[key] = value
+
+    def __enter__(self):
+        self._stack.append(self)
+        self._range = record_function("hyslam:" + self.name)
+        self.start_ns = time.perf_counter_ns()
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._range.__exit__(*exc)
+        self.end_ns = time.perf_counter_ns()
+        self._stack.pop()
+        self._range = self._stack = None
+        return None
+
+
 class StageTimer:
-    """Accumulating wall-clock spans per pipeline stage.
+    """The program's tracer: spans at the System's layer boundaries and
+    around each of the mapper's jobs, kept in memory.
 
-    with timer.span("extract"): ...   # also a torch.profiler range
-    """
+        with timer.span("mapper.fuse") as sp:   # also a profiler range
+            ...
+            sp.note("fuse_calls", n)
 
-    totals: dict = field(default_factory=dict)
-    counts: dict = field(default_factory=dict)
+    Off (the default) ``span`` returns ``OFF`` after one attribute check: no
+    clock read, no profiler range, no allocation. On (``enabled = True``) it
+    keeps a ``Span`` record of every span in ``spans``, the newest
+    ``max_spans``; ``dropped`` counts the older ones let go. Spans nest per
+    thread, so threads that trace at once keep apart trees."""
 
-    @contextlib.contextmanager
-    def span(self, name: str):
-        from torch.profiler import record_function
+    MAX_SPANS = 65536
 
-        t0 = time.perf_counter()
-        with record_function(name):
-            yield
-        dt = time.perf_counter() - t0
-        self.totals[name] = self.totals.get(name, 0.0) + dt
-        self.counts[name] = self.counts.get(name, 0) + 1
+    def __init__(self, enabled: bool = False, max_spans: int = MAX_SPANS):
+        self.enabled = enabled
+        self.spans: deque = deque(maxlen=max_spans)
+        self._started = 0
+        self._lock = threading.Lock()
+        self._local = threading.local()
 
-    def mean_ms(self, name: str) -> float:
-        n = self.counts.get(name, 0)
-        return 1e3 * self.totals.get(name, 0.0) / max(n, 1)
+    def span(self, name: str, frame: int | None = None):
+        """A span ``name`` over a ``with`` block; ``frame``: the frame id it
+        belongs to (default: the enclosing span's)."""
+        if not self.enabled:
+            return OFF
+        stack = self._local.__dict__.setdefault("stack", [])
+        with self._lock:
+            sp = Span(self._started, name, stack[-1] if stack else None, frame, stack)
+            self._started += 1
+            self.spans.append(sp)
+        return sp
 
-    def report(self) -> str:
-        lines = []
-        for name in sorted(self.totals):
-            lines.append(
-                f"{name}: n={self.counts[name]} total={self.totals[name]:.3f}s "
-                f"mean={self.mean_ms(name):.2f}ms"
-            )
-        return "\n".join(lines)
-
-
-@contextlib.contextmanager
-def device_trace(log_dir: str):
-    """Capture a torch.profiler trace (host ranges, and the card's kernels
-    and copies where there is one) around a block, and write it as a Chrome
-    trace, ``log_dir/trace.json`` (open in chrome://tracing or Perfetto)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    os.makedirs(log_dir, exist_ok=True)
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    @property
+    def dropped(self) -> int:
+        """Spans recorded and let go for the bound."""
+        return self._started - len(self.spans)

@@ -348,16 +348,24 @@ def test_telemetry_logs_byte_equal(tmp_path):
     assert telemetry.MAPPING_COLUMNS == j_tel.MAPPING_COLUMNS
 
 
-def test_stage_timer_and_device_trace(tmp_path):
+def test_stage_timer_records_spans():
     t = telemetry.StageTimer()
-    with telemetry.device_trace(str(tmp_path / "trace")):
-        for name in ("extract", "extract", "track"):
-            with t.span(name):
-                torch.ones(8).sum()
-    assert t.counts == {"extract": 2, "track": 1}
-    assert "extract: n=2" in t.report() and t.mean_ms("track") >= 0.0
-    trace = (tmp_path / "trace" / "trace.json").read_text()
-    assert '"extract"' in trace and '"track"' in trace
+    assert t.span("frame", 0) is telemetry.OFF and len(t.spans) == 0     # off
+    t.enabled = True
+    with t.span("frame", 7):
+        for n in (2, 3):
+            with t.span("mapper.fuse") as sp:
+                sp.note("fuse_calls", n)
+    with t.span("commit"):
+        pass
+    frame, fuse1, fuse2, commit = t.spans
+    assert [(x.id, x.name, x.parent, x.frame) for x in t.spans] == [
+        (0, "frame", -1, 7), (1, "mapper.fuse", 0, 7), (2, "mapper.fuse", 0, 7),
+        (3, "commit", -1, -1)]
+    assert fuse1.counters == {"fuse_calls": 2} and fuse2.counters == {"fuse_calls": 3}
+    assert frame.counters is None and t.dropped == 0
+    assert frame.start_ns <= fuse1.start_ns <= fuse1.end_ns <= fuse2.start_ns
+    assert fuse2.end_ns <= frame.end_ns <= commit.start_ns <= commit.end_ns
 
 
 # ------------------------------------------------------------------- exports

@@ -3,16 +3,15 @@
 
 At bench.py's operating point (1280x720 stereo, ORB 1000 x 8,
 MapCaps(K=64, L=16384, F=1024, O=8), loop closing off), rendered frames
-go through ``System.track_stereo``. Reported:
-- the host's wall time of each stage a frame calls (preprocess,
-  extraction, stereo matching, the NORMAL tracking step, keyframe
-  insertion and the mapper's integration, the trajectory append), each
-  stage wrapped in a ``record_function`` range;
+go through ``System.track_stereo`` with the System's tracer on. Reported:
+- the host's wall time of each of the program's spans (``frame``,
+  ``frontend``, ``track``, ``kf_insert``, ``mapper`` and each mapper job
+  ``mapper.<job>``: ``hyslam_tpu_torch/utils/telemetry.py:StageTimer``);
 - from ``torch.profiler`` over the steady frames: the kernel launches a
   frame (host ``cudaLaunchKernel`` calls) and the device rows a frame
   (kernels, copies and sets), the device's busy time a frame (the union of
   its rows) and its busy share of the frames' wall time, and the launches
-  inside each stage's range.
+  inside each span's ``hyslam:<name>`` range.
 
     python3 tools/profile_system_torch.py [--frames 40] [--profiled 10] [--json out.json]
 """
@@ -49,16 +48,13 @@ def _busy_us(rows) -> float:
 def main(argv=None):
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
-    from hyslam_tpu_torch.core import trajectory as TJ
     from hyslam_tpu_torch.core.mapstate import MapCaps
     from hyslam_tpu_torch.device import default_device
     from hyslam_tpu_torch.features.extractor import ExtractorConfig
     from hyslam_tpu_torch.geometry.camera import Camera
     from hyslam_tpu_torch.io.config import CameraConfig, SystemConfig
-    from hyslam_tpu_torch.slam import system as SYSMOD
-    from hyslam_tpu_torch.slam import tracker as TRKMOD
     from hyslam_tpu_torch.slam.system import System
     from hyslam_tpu_torch.utils import synth
     from tools.bench_multihost_torch import card
@@ -76,7 +72,7 @@ def main(argv=None):
     cc = CameraConfig(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, width=W, height=H,
                       bf=cam.bf, extractor=ExtractorConfig(n_features=1000, n_levels=8))
     sysm = System(SystemConfig(cameras={"SLAM": cc}, caps=MapCaps(K=64, L=16384, F=1024, O=8),
-                               enable_loop_closing=False, device=dev))
+                               enable_loop_closing=False, device=dev), trace=True)
     rng = np.random.default_rng(0)
     pts = np.stack([rng.uniform(-14, 14, 4000), rng.uniform(-9, 9, 4000),
                     rng.uniform(3, 45, 4000)], -1).astype(np.float32)
@@ -88,28 +84,7 @@ def main(argv=None):
     pairs = torch.from_numpy(np.stack([synth.render_stereo_pair(cam, T, pts)
                                        for T in poses])).to(dev)
 
-    stages = defaultdict(list)
-
-    def wrap(orig, key):
-        def run(*a, **kw):
-            with record_function(f"stage:{key}"):
-                t0 = time.perf_counter()
-                out = orig(*a, **kw)
-                stages[key].append(time.perf_counter() - t0)
-            return out
-        return run
-
     tk = sysm.trackers["SLAM"]
-    SYSMOD.preprocess_image = wrap(SYSMOD.preprocess_image, "preprocess")
-    SYSMOD.match_stereo_refined = wrap(SYSMOD.match_stereo_refined, "stereo_match")
-    TRKMOD.track_normal_frame = wrap(TRKMOD.track_normal_frame, "track_normal_frame")
-    TJ.append = wrap(TJ.append, "traj_append")
-    fam = sysm._families["SLAM"]
-    sysm._families["SLAM"] = fam._replace(extract_batch=wrap(fam.extract_batch, "extract"))
-    for name in ("_do_normal", "_insert_keyframe"):
-        setattr(tk, name, wrap(getattr(tk, name), name.lstrip("_")))
-    tk.mapper.integrate_keyframe = wrap(tk.mapper.integrate_keyframe, "integrate_keyframe")
-
     print("tracking...", flush=True)
     n_plain = args.frames - args.profiled
     per_frame = []
@@ -128,16 +103,16 @@ def main(argv=None):
             feed(i)
         wall_prof_us = 1e6 * (time.perf_counter() - t_prof)
     events = prof.events()
-    # the device's own rows; a record_function range also puts a row on the
-    # device (its annotation, spanning the range's kernels): not counted
+    # the device's own rows; a span's range also puts a row on the device
+    # (its annotation, spanning the range's kernels): not counted
     device_rows = [e for e in events if e.device_type == DeviceType.CUDA
-                   and not e.name.startswith("stage:")]
+                   and not e.name.startswith("hyslam:")]
     launches = [e for e in events if e.name in ("cudaLaunchKernel", "cuLaunchKernel",
                                                 "cudaLaunchKernelExC")]
     by_stage = {}
     for e in events:
-        if e.name.startswith("stage:") and e.device_type == DeviceType.CPU:
-            key = e.name[len("stage:"):]
+        if e.name.startswith("hyslam:") and e.device_type == DeviceType.CPU:
+            key = e.name[len("hyslam:"):]
             lo, hi = e.time_range.start, e.time_range.end
             n = sum(1 for x in launches if lo <= x.time_range.start <= hi)
             c = by_stage.setdefault(key, [0, 0])
@@ -157,6 +132,9 @@ def main(argv=None):
         "keyframes": sum(1 for t in tk.telemetry if t.kf_inserted >= 0),
         "stages": {},
     }
+    stages = defaultdict(list)
+    for sp in sysm.timer.spans:
+        stages[sp.name].append(1e-9 * (sp.end_ns - sp.start_ns))
     print(f"\n{'stage':22s} {'calls':>6s} {'mean ms':>9s} {'total s':>9s} {'launches/call':>14s}")
     for k, v in sorted(stages.items(), key=lambda kv: -sum(kv[1])):
         v = np.asarray(v)
