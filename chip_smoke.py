@@ -77,7 +77,9 @@ It exits non-zero, printing no result, where CUDA is not available. Phases:
    from a ``SystemConfig`` made in code, at phase 4's operating point.
    *sync*: ``System.track_stereo`` over the 60 frames; every pose must equal
    phase 4's ``Tracker.track`` pose bit for bit, with the same keyframes
-   and the K1 launches the telemetry calls for. *async*
+   and the K1 launches the telemetry calls for. In this run and in each
+   async run K2 and K3 (phase 14) launch as often as the telemetry and the
+   mapper's calls call for (``RefreshCount``). *async*
    (``async_tracking=True, commit_lag=2``): the 60 frames and ``flush()``,
    twice; 60 telemetry rows in frame order, state NORMAL, phase 4's accuracy
    gates by ``io.evaluate.ate_rmse``, K1 launches as the telemetry calls for,
@@ -205,7 +207,9 @@ It exits non-zero, printing no result, where CUDA is not available. Phases:
    device given. *10a*: the 60 frames through ``track_stereo`` with
    ``run_data_dir`` set, loop closing off. Gates: 60 rows in frame order
    ending NORMAL; every keyframe after the first integrated by the mapping
-   thread; K1 launches as the telemetry calls for; ATE and worst frame
+   thread; K1 launches as the telemetry calls for, K2 and K3 as the
+   telemetry and the mapper's calls call for (one more of each a keyframe,
+   in the tracking thread's mandatory refresh); ATE and worst frame
    within phase 5's async bounds, keyframes from phase 5's async count
    less 5 to its sync count; one keyframe decision a frame after POSTINIT,
    every keyframe taken at one that read the mapping stage idle (the
@@ -268,6 +272,21 @@ It exits non-zero, printing no result, where CUDA is not available. Phases:
    ``Vocabulary/synthetic_orb.npz``. Gates: k, depth and more than
    10^(depth-1) words; its loop AUC-PR at least the shipped one's less
    AUC_MARGIN13; the shipped file's bytes unchanged.
+
+14. Kernels K2 (the covisibility counts, ``csrc/covisibility.cu``) and K3
+   (the landmark statistics, ``csrc/landmark_stats.cu``) against their plain
+   versions in ``core/mapstate.py`` on the card. A sync System over the first
+   N_FRAMES14 frames at ``zedmini.explore``'s arena (MapCaps K 1024, L
+   262,144, F 1024, O 8) must refresh its map through the kernels alone: one
+   launch of each at the stereo initialization, 2 a mapper call before local
+   BA starts, 3 a call after, and no plain version on the card. Its map,
+   and that map widened to ``kitti.drive``'s arena (L 786,432, F 2048),
+   with planted edges (see CAPS14): K2's counts equal the plain version's
+   bit for bit; K3's descriptors equal, its floats within the stated
+   tolerance; two launches of each give the same bits; neither allocates
+   as much as a [K, L] bool. Then each timed with CUDA events beside its
+   plain version and, for K2, the plain version's ``inc @ inc.T`` product
+   alone (``library_ms``), with the bound set by each kernel's bytes.
 
 Prints the card line, one JSON line of kernel results (with the kernel's
 time: its bound and what sets it, its fixed part and its time an
@@ -446,6 +465,23 @@ N_FRONTEND_STEPS = 66
 # loop AUC-PR may fall this far below the shipped one's
 VOCAB13 = os.path.join("build", "vocab", "synthetic_orb_torch.npz")
 AUC_MARGIN13 = 0.05
+# phase 14: kernels K2 and K3 on the map of N_FRAMES14 frames of phase 4's
+# sequence through a sync System at zedmini.explore's arena, and on that map
+# widened to kitti.drive's (MapCaps K, L, F, O of the benchmark's cells), with
+# planted edges: the live keyframes copied into free slots up to N_KF14
+# keyframes, HEAVY14 landmarks named by every keyframe (past K2's 32 names a
+# thread and past O), a keyframe naming landmarks twice, a bad keyframe and
+# bad landmarks with their names left in place, rows whose observations are
+# gone. K3's floats within |a - b| <= STATS_ATOL14 + STATS_RTOL14 |b| of the
+# plain version's: it adds over the slots in another order and fuses
+# multiply-adds (PERF.md has the readings)
+CAPS14 = {"zedmini.explore": (1024, 262144, 1024, 8),
+          "kitti.drive": (1024, 786432, 2048, 8)}
+N_FRAMES14 = 24
+N_KF14 = 160
+HEAVY14 = 6
+STATS_ATOL14, STATS_RTOL14 = 1e-6, 1e-5
+N_TIMED14, N_TIMED_PLAIN14 = 20, 5
 
 
 def log(msg: str) -> None:
@@ -1101,6 +1137,72 @@ def expected_launches(tracker) -> int:
             + sum(r["pnp_solves"] + r["local_solves"] for r in tracker.reloc_log))
 
 
+class RefreshCount:
+    """K2's and K3's launches over one System run against what the run
+    called for. Made just before the run: zeroes both launch counters and
+    logs the budget level and keyframe culling of each of the tracker's
+    mapper calls. ``check(gate, label)`` just after the run gates the counts
+    and adds them to ``RefreshCount.checked``, which the kernels' line
+    prints."""
+
+    checked = {"covisibility": 0, "landmark_stats": 0}
+
+    def __init__(self, tracker, pipelined: bool = False):
+        import inspect
+
+        from hyslam_tpu_torch.ops.map_refresh_cuda import covisibility_cuda, landmark_stats_cuda
+
+        self.fns = {"covisibility": covisibility_cuda, "landmark_stats": landmark_stats_cuda}
+        self.tracker, self.pipelined, self.calls = tracker, pipelined, []
+        mapper = tracker.mapper
+        integrate = mapper.integrate_keyframe
+        sig = inspect.signature(integrate)
+
+        def logged(ms, kf_id, **kw):
+            a = sig.bind(ms, kf_id, **kw)
+            a.apply_defaults()
+            self.calls.append((a.arguments["budget_level"],
+                               a.arguments["cull_kfs"] and not mapper.is_mono))
+            return integrate(ms, kf_id, **kw)
+
+        mapper.integrate_keyframe = logged
+        for fn in self.fns.values():
+            fn.launches = 0
+
+    def inits(self) -> int:
+        return sum(t.kf_inserted >= 0 and t.state.split(">")[0] in ("INITIALIZE", "REINITIALIZE")
+                   for t in self.tracker.telemetry)
+
+    def called_for(self) -> dict:
+        """One launch of each a stereo initialization (a telemetry row in
+        INITIALIZE or REINITIALIZE with a keyframe); a mapper call at budget
+        b: one of each in the pipelined mode's mandatory refresh, one in
+        the mandatory jobs, one more at b >= 1 (fusion), and from the
+        mapper's 4th call at b >= 2 one of K3 (local BA) and, with keyframe
+        culling, one of K2 (the cull)."""
+        inits = self.inits()
+        want = {"covisibility": inits, "landmark_stats": inits}
+        for j, (b, cull) in enumerate(self.calls):
+            each = self.pipelined + 1 + (b >= 1)
+            ba = b >= 2 and j > 2
+            want["covisibility"] += each + (ba and cull)
+            want["landmark_stats"] += each + ba
+        return want
+
+    def check(self, gate, label: str) -> None:
+        kf_rows = sum(t.kf_inserted >= 0 for t in self.tracker.telemetry)
+        got = {n: fn.launches for n, fn in self.fns.items()}
+        want = self.called_for()
+        log(f"{label}: {len(self.calls)} mapper calls at budget levels "
+            f"{sorted({b for b, _ in self.calls})}, {kf_rows} keyframe rows; K2 {got['covisibility']}"
+            f" and K3 {got['landmark_stats']} launches, {want} called for")
+        gate(f"{label}: K2 and K3 launches {got} == {want} from the telemetry and the mapper's "
+             f"calls, one call a keyframe row past the initializations",
+             got == want and len(self.calls) == kf_rows - self.inits() and len(self.calls) > 3)
+        for n, v in got.items():
+            RefreshCount.checked[n] += v
+
+
 def time_integrate(tracker):
     """Wrap the tracker's integrate_keyframe with a synchronised clock:
     returns the list it fills with (keyframe id, ms, took the prior path)."""
@@ -1211,9 +1313,11 @@ def phase5(cam, cfg, poses, pairs, pts, tracked):
 
     # -- sync: System.track_stereo against phase 4's Tracker.track
     sysm = system()
+    refreshes = RefreshCount(sysm.trackers["SLAM"])
     launches, fps_sync, ms_sync = drive(sysm, stereo, n)
     tr = sysm.trackers["SLAM"]
     total += launches
+    refreshes.check(gate, "phase 5 sync")
     gate("sync: the System took the card", sysm.device.type == "cuda")
     gate(f"sync: {n} poses equal to phase 4's Tracker.track, bit for bit",
          int(tr.traj.size) == n and torch.equal(tr.traj.Tcw[:n], tracked["Tcw"]))
@@ -1235,9 +1339,11 @@ def phase5(cam, cfg, poses, pairs, pts, tracked):
         per_frame.append((any(t.kf_inserted >= 0 for t in rows[before:]), sites))
 
     runs = []
-    for feed in (stereo, counting):
+    for k, feed in enumerate((stereo, counting)):
         sysm = system(async_tracking=True, commit_lag=2)
+        refreshes = RefreshCount(sysm.trackers["SLAM"])
         runs.append((sysm.trackers["SLAM"], *drive(sysm, feed, n)))
+        refreshes.check(gate, f"phase 5 async, run {k + 1}")
     tr, launches, fps_async, ms_async = runs[0]
     async_lines = frame_lines(tr)
     total += launches
@@ -2552,6 +2658,7 @@ def phase10(cam, cfg, poses, pairs, timing5=None):
         pipe, tr = sysm._pipe, sysm.trackers["SLAM"]
         gate("10a: the System took the card and built its pipeline",
              sysm.device.type == "cuda" and pipe is not None and tr.mapping_status is not None)
+        refreshes = RefreshCount(tr, pipelined=True)
         pose_optimization_cuda.launches = 0
         t0 = None
         for i in range(n):
@@ -2563,6 +2670,7 @@ def phase10(cam, cfg, poses, pairs, timing5=None):
         sysm.flush()
         t1 = time.perf_counter()
         launches = pose_optimization_cuda.launches
+        refreshes.check(gate, "phase 10a")
         total += launches
         tels = pipe.telemetry
         kf_rows = [t for t in tels if t.kf_inserted >= 0]
@@ -3182,6 +3290,184 @@ def phase13():
     return {"words": voc.n_words, "train_s": train_s, **{f"auc_{k}": v for k, v in auc.items()}}
 
 
+def widen14(ms, caps):
+    """ms in an arena of caps with its K and O: each keyframe's features past
+    ms.F repeat its first ms.F (every name it holds, held twice), landmark
+    rows past ms.L virgin."""
+    from hyslam_tpu_torch.core import mapstate as M
+
+    K, L, F, O = caps
+    if (K, O) != (ms.K, ms.O) or F % ms.F or L < ms.L:
+        raise ValueError(f"cannot widen {(ms.K, ms.L, ms.F, ms.O)} to {caps}")
+    virgin = M.empty_map_state(M.MapCaps(*caps), device=ms.covis.device).lm
+    per_feature = ("uv", "ur", "depth", "level", "angle", "desc", "kp_valid", "lm_id")
+    kf = ms.kf._replace(**{n: torch.cat([getattr(ms.kf, n)] * (F // ms.F), dim=1)
+                           for n in per_feature})
+    lm = ms.lm._replace(**{n: torch.cat([getattr(ms.lm, n), getattr(virgin, n)[ms.L:]])
+                           for n in ms.lm._fields})
+    return ms._replace(kf=kf, lm=lm)
+
+
+def plant14(ms):
+    """Phase 14's planted edges (see its constants) on a copy of ms."""
+    K, F = ms.K, ms.F
+    kf, lm = ms.kf, ms.lm
+    live = torch.nonzero(kf.valid & ~kf.bad).flatten()
+    free = torch.nonzero(~kf.valid).flatten()[:max(N_KF14 - live.numel(), 0)]
+    src = live[torch.arange(free.numel(), device=live.device) % live.numel()]
+    kf = kf._replace(**{n: getattr(kf, n).index_copy(0, free, getattr(kf, n)[src])
+                        for n in kf._fields})
+    named = torch.nonzero(kf.valid).flatten()
+    lm_live = torch.nonzero(lm.valid & ~lm.bad).flatten()
+    lm_id, kp = kf.lm_id.clone(), kf.kp_valid.clone()
+    for h, l in enumerate(lm_live[:HEAVY14].tolist()):
+        lm_id[named, F - 1 - h] = l
+        kp[named, F - 1 - h] = True
+    twice = lm_id[int(live[1])][lm_id[int(live[1])] >= 0][:8]
+    slots = torch.arange(F - HEAVY14 - twice.numel(), F - HEAVY14, device=lm_id.device)
+    lm_id[int(live[1]), slots] = twice
+    kp[int(live[1]), slots] = True
+    kf = kf._replace(lm_id=lm_id, kp_valid=kp, bad=kf.bad.clone().index_fill_(0, live[2:3], True))
+    bad_rows = lm_live[HEAVY14:HEAVY14 + 20]
+    gone = lm_live[HEAVY14 + 20:HEAVY14 + 40]
+    lm = lm._replace(bad=lm.bad.clone().index_fill_(0, bad_rows, True),
+                     obs_valid=lm.obs_valid.clone().index_fill_(0, gone, False))
+    return ms._replace(kf=kf, lm=lm)
+
+
+def phase14(cam, cfg, pairs):
+    """K2 and K3 against their plain versions; see the module docstring.
+    Returns the kernels' lines for the closing JSON."""
+    from hyslam_tpu_torch import kernels
+    from hyslam_tpu_torch.core import mapstate as M
+
+    failed = []
+
+    def gate(name, ok):
+        log(f"phase 14 gate {'ok' if ok else 'FAILED'}: {name}")
+        if not ok:
+            failed.append(name)
+
+    # a System run, with the plain versions counted where they run on the card
+    plain_calls = {"refresh_covisibility_plain": 0, "update_landmark_stats_plain": 0}
+    originals = {n: getattr(M, n) for n in plain_calls}
+
+    def counted(name):
+        def call(ms):
+            plain_calls[name] += ms.covis.device.type != "cpu"
+            return originals[name](ms)
+        return call
+
+    for n in plain_calls:
+        setattr(M, n, counted(n))
+    try:
+        sysm = make_system(cam, cfg, caps=CAPS14["zedmini.explore"])
+        tr = sysm.trackers["SLAM"]
+        refreshes = RefreshCount(tr)
+        for i in range(N_FRAMES14):
+            sysm.track_stereo(pairs[i, 0], pairs[i, 1], FRAME_DT * i, frame_id=i)
+        sysm.flush()
+        refreshes.check(gate, f"phase 14 System, {N_FRAMES14} frames")
+        log(f"phase 14 System: plain versions on the card {plain_calls}")
+        gate("no plain version ran on the card", not any(plain_calls.values()))
+        ms0 = tr.ms
+        kf_live = (ms0.kf.valid & ~ms0.kf.bad)[:, None]
+        lm_live = ms0.lm.valid & ~ms0.lm.bad
+        lid = ms0.kf.lm_id.clamp(0, ms0.L - 1).long()
+        n = torch.bincount(lid[(ms0.kf.lm_id >= 0) & ms0.kf.kp_valid & kf_live & lm_live[lid]],
+                           minlength=ms0.L)
+        log(f"phase 14 System map, before any planting: {int((n > 32).sum())} landmarks past "
+            f"32 names (K2's block path; repeats counted), most {int(n.max())}, holding "
+            f"{int(n[n > 32].sum())} of {int(n.sum())} live names")
+        sysm.shutdown()
+    finally:
+        for n, f in originals.items():
+            setattr(M, n, f)
+
+    lines = {}
+    for cell, caps in CAPS14.items():
+        K, L, F, O = caps
+        ms = plant14(widen14(ms0, caps))
+        inc = M.incidence_matrix(ms) & (ms.lm.valid & ~ms.lm.bad)[None, :]
+        names = inc.sum(dim=0)
+        heavy, dup = int((names > 32).sum()), int((ms.kf.lm_id >= 0).sum() - inc.sum())
+        live_obs = int(ms.lm.obs_valid.sum())
+        kf_live = (ms.kf.valid & ~ms.kf.bad)[:, None]
+        named = int(torch.unique(ms.kf.lm_id.clamp(max=L - 1)[
+            (ms.kf.lm_id >= 0) & ms.kf.kp_valid & kf_live]).numel())
+        # what the two calls may hold at once: K2's scratch and counts, K3's
+        # four outputs (52 bytes a row), and 1 MiB for the allocator's rounding
+        need = (4 * kernels.load().hyslam_covisibility_scratch_ints(K, F, L) + 4 * K * K
+                + 52 * L + 2**20)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        c1 = M.refresh_covisibility(ms).covis
+        s1 = M.update_landmark_stats(ms).lm
+        torch.cuda.synchronize()
+        transient = torch.cuda.max_memory_allocated() - held
+        c2 = M.refresh_covisibility(ms).covis
+        s2 = M.update_landmark_stats(ms).lm
+        cp = M.refresh_covisibility_plain(ms).covis
+        sp = M.update_landmark_stats_plain(ms).lm
+        log(f"phase 14 {cell} {caps}: {int(ms.kf.valid.sum())} keyframes, "
+            f"{int((ms.lm.valid & ~ms.lm.bad).sum())} live landmarks, {int(inc.sum())} "
+            f"distinct names, {dup} repeated or of bad rows, {heavy} landmarks of > 32 "
+            f"names (most {int(names.max())}), {live_obs} valid observations; peak over "
+            f"the held {held / 2**20:.1f} MiB: {transient / 2**20:.2f} MiB, of "
+            f"{need / 2**20:.2f} MiB that the kernels' scratch and outputs take")
+        gate(f"{cell}: K2 equals the plain covisibility bit for bit", torch.equal(c1, cp))
+        gate(f"{cell}: K2 twice, the same bits", torch.equal(c1, c2))
+        gate(f"{cell}: K3's descriptors equal the plain version's", torch.equal(s1.desc, sp.desc))
+        gate(f"{cell}: K3 twice, the same bits",
+             all(torch.equal(getattr(s1, n), getattr(s2, n))
+                 for n in ("normal", "desc", "min_dist", "max_dist")))
+        gaps = {}
+        for n in ("normal", "min_dist", "max_dist"):
+            a, b = getattr(s1, n), getattr(sp, n)
+            fin = torch.isfinite(b)
+            d = (a - b).abs()[fin]
+            gaps[n] = {"max_abs": float(d.max()) if d.numel() else 0.0,
+                       "max_rel": float((d / b.abs()[fin].clamp_min(1e-30)).max())
+                       if d.numel() else 0.0,
+                       "apart": int((a != b).sum())}
+            gate(f"{cell}: K3's {n} within {STATS_ATOL14} + {STATS_RTOL14} |b|",
+                 bool(torch.isclose(a, b, rtol=STATS_RTOL14, atol=STATS_ATOL14).all()))
+        log(f"phase 14 {cell} K3 against the plain floats: {json.dumps(gaps)}")
+        gate(f"{cell}: K2 and K3 allocate no more than their scratch and outputs",
+             transient <= need)
+        gate(f"{cell}: heavy landmarks and repeated names planted", heavy >= HEAVY14 and dup > 0)
+        del c1, c2, s1, s2, cp, sp
+
+        t = {"k2_ms": cuda_ms(lambda: M.refresh_covisibility(ms), N_TIMED14),
+             "k2_plain_ms": cuda_ms(lambda: M.refresh_covisibility_plain(ms), N_TIMED_PLAIN14)}
+        incf = inc.to(torch.float32)
+        del inc
+        t["library_ms"] = cuda_ms(lambda: incf @ incf.T, N_TIMED_PLAIN14)
+        del incf
+        t["k3_ms"] = cuda_ms(lambda: M.update_landmark_stats(ms), N_TIMED14)
+        t["k3_plain_ms"] = cuda_ms(lambda: M.update_landmark_stats_plain(ms), N_TIMED_PLAIN14)
+        # bytes each must move at the least: K2 the associations, the masks
+        # of the keyframes and of the landmarks named, the counts out; K3
+        # every row's valid bits and its 13 words in and out, and each valid
+        # observation's pose, level and descriptor
+        t["k2_bound_ms"] = 1e3 * (K * F * 5 + 2 * K + 2 * named + 4 * K * K) / 3.35e12
+        t["k3_bound_ms"] = 1e3 * (L * O + 2 * 52 * L + live_obs * (48 + 4 + 32)) / 3.35e12
+        log(f"phase 14 {cell} timing: {json.dumps(t)}")
+        lines[cell] = t
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("phase 14 failed: " + "; ".join(failed))
+
+    def kernel_line(name, keys):
+        return {"name": name, "route": "cuda", "source": f"hyslam_tpu_torch/csrc/{name}.cu",
+                "replaces": None, "launches": RefreshCount.checked[name],
+                **{cell: {k: t[k] for k in keys} for cell, t in lines.items()}}
+
+    return [kernel_line("covisibility", ("k2_ms", "k2_plain_ms", "library_ms", "k2_bound_ms")),
+            kernel_line("landmark_stats", ("k3_ms", "k3_plain_ms", "k3_bound_ms"))]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3217,7 +3503,8 @@ def main() -> int:
     timed("11", phase11, cam, dev)
     launches += timed("12", phase12)
     timed("13", phase13)
-    log(f"seconds a phase: {json.dumps(took)}")
+    k23 = timed("14", phase14, cam, cfg, pairs)
+    log(f"seconds a phase: {json.dumps(took)}, {sum(took.values()):.1f} in all")
     log(json.dumps({"kernels": [{
         "name": "pose_opt",
         "route": "cuda",
@@ -3225,7 +3512,7 @@ def main() -> int:
         "replaces": "hyslam_tpu/ops/pose_opt_pallas.py:331",
         "launches": launches,
         **k1,
-    }]}))
+    }] + k23}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

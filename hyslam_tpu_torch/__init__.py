@@ -10,7 +10,8 @@ What is ported so far is the per-frame stereo front end,
 stereo match with sub-pixel refinement, local-map projection matching, and
 pose-only Levenberg-Marquardt. The pose optimizer runs as a hand-written CUDA
 kernel for Hopper (``csrc/pose_opt.cu``) on CUDA tensors and as its plain
-PyTorch version on CPU tensors.
+PyTorch version on CPU tensors; so do the map's covisibility counts and
+landmark statistics (``csrc/covisibility.cu``, ``csrc/landmark_stats.cu``).
 """
 
 __version__ = "0.1.0"

@@ -27,6 +27,7 @@ from hyslam_tpu_torch.core.frame import FrameFeatures
 from hyslam_tpu_torch.geometry import se3
 from hyslam_tpu_torch.ops import indexing as ix
 from hyslam_tpu_torch.ops.hamming import hamming_pairwise
+from hyslam_tpu_torch.ops.map_refresh_cuda import covisibility_cuda, landmark_stats_cuda
 
 # copied from hyslam_tpu/core/mapstate.py
 COVIS_THRESHOLD = 15  # min shared landmarks for a covisibility edge
@@ -413,8 +414,21 @@ def incidence_matrix(ms: MapState) -> torch.Tensor:
 
 
 def refresh_covisibility(ms: MapState) -> MapState:
-    """Recompute the covisibility weights as I @ I^T over the association
-    incidence. The 0/1 product is taken in float32 (TF32 off): the JAX
+    """Recompute the covisibility weights: the live landmarks each pair of
+    keyframes shares on the keyframe side. On CPU tensors the plain version
+    below; on any other device kernel K2 (``ops/map_refresh_cuda.py``), whose
+    work follows the live associations and which gives the plain version's
+    bits or raises: there is no fallback on the card."""
+    if ms.covis.device.type == "cpu":
+        return refresh_covisibility_plain(ms)
+    kf, lm = ms.kf, ms.lm
+    return ms._replace(covis=covisibility_cuda(*(x.contiguous() for x in (
+        kf.lm_id, kf.kp_valid, kf.valid, kf.bad, lm.valid, lm.bad))))
+
+
+def refresh_covisibility_plain(ms: MapState) -> MapState:
+    """refresh_covisibility as I @ I^T over the association incidence
+    [K, L]. The 0/1 product is taken in float32 (TF32 off): the JAX
     package multiplies in bf16 with f32 accumulation, and a bf16 product in
     torch would round counts above 256; f32 keeps every count exact."""
     inc = incidence_matrix(ms).to(torch.float32)
@@ -452,8 +466,28 @@ def compute_spanning_parents(ms: MapState) -> MapState:
 
 def update_landmark_stats(ms: MapState) -> MapState:
     """Recompute normals, distance-invariance ranges and representative
-    descriptors of all landmarks in one batched pass (the observation
-    descriptor with the least total Hamming distance to the others)."""
+    descriptors of all landmarks (the observation descriptor with the least
+    total Hamming distance to the others); a landmark with no valid
+    observation keeps its values. On CPU tensors the plain version below; on
+    any other device kernel K3 (``ops/map_refresh_cuda.py``), whose work
+    follows the live observations, with the plain version's descriptors bit
+    for bit and its floats to rounding, or which raises: there is no
+    fallback on the card."""
+    if ms.lm.pos.device.type == "cpu":
+        return update_landmark_stats_plain(ms)
+    kf, lm = ms.kf, ms.lm
+    normal, desc, min_dist, max_dist = landmark_stats_cuda(
+        *(x.contiguous() for x in (
+            lm.obs_kf, lm.obs_feat, lm.obs_valid, kf.Tcw, lm.pos, kf.level, kf.desc,
+            lm.normal, lm.desc, lm.min_dist, lm.max_dist)),
+        _INV_SCALE_RANGE)
+    return ms._replace(lm=lm._replace(normal=normal, desc=desc, min_dist=min_dist,
+                                      max_dist=max_dist))
+
+
+def update_landmark_stats_plain(ms: MapState) -> MapState:
+    """update_landmark_stats in one batched pass over every landmark slot
+    and every pair of observation slots ([L, O, O] distances)."""
     kfc = ms.lm.obs_kf.clamp(0, ms.K - 1).long()
     featc = ms.lm.obs_feat.clamp(0, ms.F - 1).long()
     ov = ms.lm.obs_valid

@@ -18,6 +18,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "hyslam_tpu_torch"
@@ -39,6 +41,14 @@ _SIGNATURES = {
     # Tout inl ninl chi2 | stream
     "hyslam_pose_opt": ([_P] * 7 + [_I, _I] + [_F] * 5 + [_I, _I]
                         + [_P] * 4 + [_P], _I),
+    # lm_id kp_valid kf_valid kf_bad lm_valid lm_bad | K F L | scratch covis |
+    # stream
+    "hyslam_covisibility": ([_P] * 6 + [_I] * 3 + [_P] * 2 + [_P], _I),
+    "hyslam_covisibility_scratch_ints": ([_I] * 3, ctypes.c_longlong),
+    # obs_kf obs_feat obs_valid Tcw pos level kf_desc | normal desc min_dist
+    # max_dist (old) | K F L O | inv_scale_range | the four new | stream
+    "hyslam_landmark_stats": ([_P] * 7 + [_P] * 4 + [_I] * 4 + [_F] + [_P] * 4
+                              + [_P], _I),
     "hyslam_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -107,3 +117,20 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.hyslam_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def check_tensor(name: str, x: torch.Tensor, shape: tuple, dtype: torch.dtype,
+                 device: torch.device | None = None) -> None:
+    """Raise unless x is a contiguous tensor of this dtype and shape, and on
+    ``device`` where one is given: a wrapper's check of an input before its
+    pointer goes to a C entry point."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(x).__name__}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {x.dtype}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name}: expected shape {shape}, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if device is not None and x.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device}, got {x.device}")

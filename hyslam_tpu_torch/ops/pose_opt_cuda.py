@@ -14,20 +14,10 @@ from __future__ import annotations
 import torch
 
 from hyslam_tpu_torch import kernels
+from hyslam_tpu_torch.kernels import check_tensor
 from hyslam_tpu_torch.geometry.camera import Camera
 
 MAX_OBS = 4096   # observations per problem: kMaxObs in csrc/pose_opt.cu
-
-
-def _check(name: str, x: torch.Tensor, shape: tuple, dtype: torch.dtype) -> None:
-    if not isinstance(x, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(x).__name__}")
-    if x.dtype != dtype:
-        raise ValueError(f"{name}: expected {dtype}, got {x.dtype}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"{name}: expected shape {shape}, got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
 
 
 def pose_optimization_cuda(
@@ -63,13 +53,13 @@ def pose_optimization_cuda(
     if not 0 < N <= MAX_OBS or B <= 0:
         raise ValueError(f"need B >= 1 and 1 <= N <= {MAX_OBS}, got B={B} N={N}")
     f32 = torch.float32
-    _check("Tcw0", Tcw0, lead + (4, 4), f32)
-    _check("X", X, lead + (N, 3), f32)
-    _check("uv", uv, lead + (N, 2), f32)
-    _check("ur", ur, lead + (N,), f32)
-    _check("inv_sigma2", inv_sigma2, lead + (N,), f32)
-    _check("valid", valid, lead + (N,), torch.bool)
-    _check("stereo", stereo, lead + (N,), torch.bool)
+    check_tensor("Tcw0", Tcw0, lead + (4, 4), f32)
+    check_tensor("X", X, lead + (N, 3), f32)
+    check_tensor("uv", uv, lead + (N, 2), f32)
+    check_tensor("ur", ur, lead + (N,), f32)
+    check_tensor("inv_sigma2", inv_sigma2, lead + (N,), f32)
+    check_tensor("valid", valid, lead + (N,), torch.bool)
+    check_tensor("stereo", stereo, lead + (N,), torch.bool)
     dev = X.device
     if dev.type != "cuda":
         raise ValueError(f"expected CUDA tensors, got {dev}")

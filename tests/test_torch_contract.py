@@ -284,7 +284,8 @@ def test_kernel_build_is_keyed_and_ignored():
     d = kernels.build_dir()
     assert d.parent == REPO / "build" / "hyslam_tpu_torch" and len(d.name) == 16
     assert "build/" in (REPO / ".gitignore").read_text().split()
-    assert [p.name for p in kernels._sources()] == ["pose_opt.cu"]
+    assert [p.name for p in kernels._sources()] == [
+        "covisibility.cu", "landmark_stats.cu", "pose_opt.cu"]
 
 
 def test_numpy_renderer_matches_helpers():

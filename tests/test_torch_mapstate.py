@@ -219,6 +219,81 @@ def case_duplicate_targets(api):
     return ms, ()
 
 
+# planted states for the map refresh (refresh_covisibility,
+# update_landmark_stats): the plain versions, which the card's kernels K2 and
+# K3 are held to (chip_smoke.py phase 14), against the JAX package
+
+def case_covis_counts_a_repeated_name_once(api):
+    """A keyframe that names one landmark from several features shares it
+    once with each other keyframe."""
+    M = api.M
+    ms, _, _, lm_idx = two_kfs(api)
+    assoc = np.full(32, -1, np.int32)
+    assoc[[0, 4, 9]] = lm_idx[2]
+    assoc[[1, 7]] = lm_idx[3]
+    assoc[2] = lm_idx[5]
+    ms, _ = M.add_keyframe(ms, feats(api, 12, 4), api.se3.identity(), 2.0, 2, 0,
+                           ivec(api, assoc))
+    return M.refresh_covisibility(ms), ()
+
+
+def case_covis_skips_a_bad_keyframe(api):
+    """Names held by a keyframe marked bad, left in place, share nothing."""
+    ms, _ = with_third_kf(api)
+    bad = np.zeros(CAPS[0], bool)
+    bad[2] = True
+    ms = ms._replace(kf=ms.kf._replace(bad=bvec(api, bad)))
+    M = api.M
+    return M.compute_spanning_parents(M.refresh_covisibility(ms)), ()
+
+
+def case_covis_skips_a_bad_landmark(api):
+    """Names of landmarks marked bad, left in place, share nothing."""
+    ms, lm_idx = with_third_kf(api)
+    bad = np.zeros(CAPS[1], bool)
+    bad[lm_idx[[0, 3, 7]]] = True
+    ms = ms._replace(lm=ms.lm._replace(bad=bvec(api, bad)))
+    return api.M.refresh_covisibility(ms), ()
+
+
+def more_observers_than_o(api):
+    """Seven keyframes name the first six landmarks, whose lists hold O = 4
+    observations; levels 0-7 and poses that differ, for the statistics."""
+    M = api.M
+    ms, _, _, lm_idx = two_kfs(api)
+    assoc = np.full(32, -1, np.int32)
+    assoc[:6] = lm_idx[:6]
+    for i in range(5):
+        T = api.se3.exp(api.arr(np.asarray([0.01 * i, 0.02, 0, 0.1 * i, -0.05 * i, 0.2],
+                                           np.float32)))
+        ms, _ = M.add_keyframe(ms, feats(api, 8, 10 + i), T, 2.0 + i, 2 + i, 0,
+                               ivec(api, assoc))
+    levels = np.random.default_rng(5).integers(0, 8, (CAPS[0], CAPS[2]), dtype=np.int32)
+    return ms._replace(kf=ms.kf._replace(level=api.arr(levels)))
+
+
+def case_covis_counts_more_observers_than_o(api):
+    return api.M.refresh_covisibility(more_observers_than_o(api)), ()
+
+
+def case_stats_over_the_first_o_observers(api):
+    return api.M.update_landmark_stats(more_observers_than_o(api)), ()
+
+
+def case_stats_keep_rows_without_observations(api):
+    """Rows whose observations are all gone keep the values of the refresh
+    before, virgin rows theirs (normal 0, range [0, inf)), and the rest are
+    recomputed from what is left."""
+    M = api.M
+    ms, _, _, _ = two_kfs(api, n_shared=15)
+    ms = M.update_landmark_stats(ms)
+    bad = np.zeros(CAPS[0], bool)
+    bad[1] = True
+    ms = M.set_keyframes_bad(ms, bvec(api, bad))
+    ms = M.erase_associations(ms, 0, ivec(api, np.arange(32)), bvec(api, np.arange(32) < 4))
+    return M.update_landmark_stats(ms), ()
+
+
 CASES = [
     case_add_keyframe, case_add_landmarks_allocates_and_binds,
     case_two_sided_consistency, case_erase_association, case_weights,
@@ -228,6 +303,9 @@ CASES = [
     case_replace_rewrites_references, case_cull_keyframe_reparents,
     case_spanning_recompute_preserves_culled_anchors, case_landmark_slots_recycle,
     case_origin_not_erasable, case_duplicate_targets,
+    case_covis_counts_a_repeated_name_once, case_covis_skips_a_bad_keyframe,
+    case_covis_skips_a_bad_landmark, case_covis_counts_more_observers_than_o,
+    case_stats_over_the_first_o_observers, case_stats_keep_rows_without_observations,
 ]
 
 
@@ -250,6 +328,56 @@ def test_duplicate_targets_keep_the_last_row():
     assert int(slots.sum()) == 1 and int(lm.obs_feat[l2][slots]) == 9
     assert int(lm.n_obs[l2]) == 2 + 3
     assert int(lm.replaced_by[int(lm_idx[8])]) == int(lm_idx[11])
+
+
+def test_planted_states_hold_what_they_plant():
+    """The planted cases reach the edges they name: a name counted once,
+    the bad keyframe's and bad landmarks' names left out, more names than
+    observation slots, rows that keep their values."""
+    ms, _ = case_covis_counts_a_repeated_name_once(TORCH)
+    lm_idx = two_kfs(TORCH)[3]
+    assert int(ms.covis[2, 0]) == 3 and int(ms.covis[2, 1]) == 3   # lm 2, 3, 5
+    ms, _ = case_covis_skips_a_bad_keyframe(TORCH)
+    assert int(ms.covis[2].abs().sum()) == 0 and int(ms.covis[0, 1]) == 10
+    ms, _ = case_covis_skips_a_bad_landmark(TORCH)
+    assert int(ms.covis[0, 1]) == 7 and int(ms.covis[0, 2]) == 3
+    ms = more_observers_than_o(TORCH)
+    l0 = int(lm_idx[0])
+    assert int((ms.kf.lm_id == l0).sum()) == 7 and bool(ms.lm.obs_valid[l0].all())
+    assert int(mapstate.refresh_covisibility(ms).covis[6, 0]) == 6
+    before = mapstate.update_landmark_stats(two_kfs(TORCH, n_shared=15)[0]).lm
+    after = case_stats_keep_rows_without_observations(TORCH)[0].lm
+    kept = torch.as_tensor(lm_idx[:4]).long()
+    assert not bool(after.obs_valid[kept].any())
+    for name in ("normal", "desc", "min_dist", "max_dist"):
+        assert torch.equal(getattr(after, name)[kept], getattr(before, name)[kept])
+
+
+def test_cpu_tensors_take_the_plain_versions(monkeypatch):
+    """On the CPU refresh_covisibility and update_landmark_stats are their
+    plain versions, bit for bit, and build and launch neither kernel."""
+    from hyslam_tpu_torch import kernels
+    from hyslam_tpu_torch.ops import map_refresh_cuda as R
+
+    def no_build(*a, **k):
+        raise AssertionError("a CPU call reached the kernel build")
+
+    monkeypatch.setattr(kernels, "build", no_build)
+    monkeypatch.setattr(kernels, "load", no_build)
+    ms = more_observers_than_o(TORCH)
+    got = mapstate.update_landmark_stats(mapstate.refresh_covisibility(ms))
+    want = mapstate.update_landmark_stats_plain(mapstate.refresh_covisibility_plain(ms))
+    assert_tree_close(tree_np(got), tree_np(want), atol=0.0)
+    assert R.covisibility_cuda.launches == R.landmark_stats_cuda.launches == 0
+
+
+@pytest.mark.parametrize("fn", ["refresh_covisibility", "update_landmark_stats"])
+def test_other_devices_take_the_kernels_or_raise(fn):
+    """A state on any device but the CPU goes to the kernel, which raises
+    where the device is not CUDA: nothing falls back to the plain version."""
+    ms = mapstate.empty_map_state(mapstate.MapCaps(*CAPS), device="meta")
+    with pytest.raises(ValueError, match="expected CUDA tensors"):
+        getattr(mapstate, fn)(ms)
 
 
 def test_functions_leave_their_input_unchanged():
