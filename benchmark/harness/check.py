@@ -44,6 +44,11 @@ The numbers read, each at the timed sizes on what the window produced:
   in the earlier camera's frame, against the rendered truth's (a relative
   error does not grow with the window's length).
 
+These read the rig's SLAM camera. A number that the limits file names and
+that is none of these is read by ``checks/<number>.py``: ``read(run)``
+over what the run kept of every camera (``cell.CheckRun``); a limits file
+that names a number with neither raises before the run.
+
 The numbers compared are those with a limit in ``limits/<cell>.json``,
 which holds the readings each limit was set from; the others are printed.
 The control (``--control``) puts lower precision where the program's
@@ -219,21 +224,35 @@ def _excess(gaps, rank: int = 1):
     return max(0.0, sorted(gaps)[-rank]) if len(gaps) >= rank else float("inf")
 
 
-def run(rng, window_frames, probes, seq, cfg, poses, limits, control=False):
+BUILT_IN = ("fe_mismatch", "k1_cost_gap_2nd", "ba_cost_gap", "rpe_m", "kf_rpe_m")
+
+
+def numbers_named(limits: dict) -> list[str]:
+    """The numbers a limits file names (compared or printed) that are not
+    built in: each is read by checks/<number>.py."""
+    return [k for k, v in limits.items() if isinstance(v, dict) and k not in BUILT_IN]
+
+
+def run(rng, record, limits, checks, control=False):
     """([(name, value, limit)] of every number compared, what was read).
-    ``poses`` holds the system's (frame ids, Tcw) of the window's tracked
-    frames and keyframes."""
-    frames = sorted(f for f in window_frames if f in probes.matched and f in probes.extracted)
+    ``record`` is what the run kept (``cell.CheckRun``); the built-in
+    numbers read its SLAM camera, ``checks`` (number -> the module of
+    checks/<number>.py) reads the others."""
+    slam = record.cameras["SLAM"]
+    window_frames = set(slam.frames)
+    block = record.rig["SLAM"]
+    frames = sorted(f for f in window_frames if f in slam.matched and f in slam.features)
     pick = sorted(rng.choice(frames, size=min(N_FRONTEND, len(frames)), replace=False).tolist())
-    solves = [(a, r) for f, a, r in probes.solves if f in window_frames]
+    solves = [(a, r) for c, f, a, r in record.solves if c == "SLAM" and f in window_frames]
     n_valid = torch.stack([a[6].sum() for a, _ in solves]).tolist() if solves else []
     big = [j for j, n in enumerate(n_valid) if n >= MIN_VALID]
     idx = sorted(rng.choice(big, size=min(N_SOLVES, len(big)), replace=False).tolist())
-    bas = [(p, r) for f, p, r in probes.local_ba if f in window_frames and p.priors is None]
+    bas = [(p, r) for c, f, p, r in record.local_ba
+           if c == "SLAM" and f in window_frames and p.priors is None]
     ib = sorted(rng.choice(len(bas), size=min(N_LOCAL_BA, len(bas)), replace=False).tolist())
     _tf32(False)     # the reference in float64, TF32 off
-    fe = (frontend_mismatch(pick, probes.extracted, probes.matched, seq.pairs,
-                            cfg["extractor"], cfg["caps"]["F"], cfg["camera"]["bf"], control)
+    fe = (frontend_mismatch(pick, slam.features, slam.matched, record.seq.pairs,
+                            block["extractor"], record.cfg["caps"]["F"], block["bf"], control)
           if pick else float("inf"))
     k1 = pose_readings([solves[i] for i in idx], control)
     ba = ba_readings([bas[j] for j in ib])
@@ -251,11 +270,13 @@ def run(rng, window_frames, probes, seq, cfg, poses, limits, control=False):
                                     for m in k1["margin"]],
             "local_ba_compared": len(ib), "ba_cost_gaps": [float("%.3g" % g) for g in ba["cost"]],
             "ba_pose_gap": _worst(ba["pose"])}
-    for name, (ids, Tcw) in poses.items():
-        err = relative_errors(ids, Tcw, seq.poses[ids])
+    for name, (ids, Tcw, truth) in (("rpe_m", slam.traj), ("kf_rpe_m", slam.kfs)):
+        err = relative_errors(ids, Tcw, truth)
         numbers[name] = float(np.sqrt(np.mean(err ** 2))) if len(err) else float("inf")
-        ate = centre_errors(Tcw, seq.poses[ids]) if len(ids) else np.zeros(1)
+        ate = centre_errors(Tcw, truth) if len(ids) else np.zeros(1)
         info[name] = (len(err), float(err.max()) if len(err) else None, float(ate.max()))
+    for name, mod in checks.items():
+        numbers[name] = float(mod.read(record))
     info["numbers"] = numbers
     compared = [k for k, v in limits.items() if isinstance(v, dict) and "limit" in v]
-    return [(k, numbers.get(k, float("inf")), limits[k]["limit"]) for k in compared], info
+    return [(k, numbers[k], limits[k]["limit"]) for k in compared], info

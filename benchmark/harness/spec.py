@@ -8,9 +8,13 @@ of its own:
     traffic/<traffic>.json    the motion and world the generator reads
     metrics/<metric>.py       a reader: read(run) -> float or None
     limits/<cell>.json        each compared number's limit and readings
+    checks/<number>.py        a compared number that harness/check.py does
+                              not compute: read(run) -> float, and WRAPS,
+                              the program's calls whose records it reads
 
-so a later change adds a configuration, a mix, a metric or a cell as new
-files and new entries, and edits none.
+so a later change adds a configuration (a rig of cameras among it), a mix,
+a metric, a compared number or a cell as new files and new entries, and
+edits none.
 """
 
 from __future__ import annotations
@@ -55,8 +59,21 @@ class Bench:
 
     def reader(self, metric: str):
         """The ``read(run)`` of metrics/<metric>.py."""
-        path = self.dir / "metrics" / f"{metric}.py"
-        spec = importlib.util.spec_from_file_location(f"_bench_metric_{metric}", path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod.read
+        return _load(self.dir / "metrics" / f"{metric}.py", f"_bench_metric_{metric}").read
+
+    def check(self, number: str):
+        """The module checks/<number>.py: ``read(run) -> float`` and
+        ``WRAPS``. Raises FileNotFoundError, naming the file, where there
+        is none."""
+        path = self.dir / "checks" / f"{number}.py"
+        if not path.is_file():
+            raise FileNotFoundError(f"{path}: the limits name {number!r}, which "
+                                    f"harness/check.py does not compute and no file reads")
+        return _load(path, f"_bench_check_{number}")
+
+
+def _load(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod

@@ -1,6 +1,6 @@
 """Feed a cell's whole sequence, as long as BENCHMARK.json's run_seconds
-makes it, through the System with no clock, and print the arenas' use
-every 100 frames: the keyframe cursor against K and the landmark rows
+makes it, through the System with no clock, step by step, and print the
+arenas' use every 100 steps: the keyframe cursor against K and the landmark rows
 allocated against L (a row allocated past L is a recycled one). Sizes K
 and L so that neither fills within the sequence, whatever rate a later
 program reaches. Exit 1 where one does.
@@ -25,8 +25,10 @@ def main(argv=None) -> int:
     import torch
 
     sys.path.insert(0, ROOT)
+    from types import SimpleNamespace
+
     from benchmark.harness import sequence
-    from benchmark.harness.cell import _states, make_system
+    from benchmark.harness.cell import Feeder, _states, make_system, rig_cameras
     from benchmark.harness.spec import Bench
 
     bench = Bench()
@@ -34,18 +36,16 @@ def main(argv=None) -> int:
     cfg = bench.config(cell["config"])
     traffic = bench.traffic(cell["traffic"])
     device = torch.device(args.device)
-    c = cfg["camera"]
-    cam = sequence.Camera(c["fx"], c["fy"], c["cx"], c["cy"], c["width"], c["height"], c["bf"])
-    seq = sequence.build(cam, traffic, cfg["frame_dt"], args.seed, bench.spec["run_seconds"],
-                         device)
+    seq = sequence.build(rig_cameras(cfg), traffic, cfg["frame_dt"], args.seed,
+                         bench.spec["run_seconds"], device)
     system = make_system(cfg, device)
+    feed = Feeder(system, seq, cfg, SimpleNamespace())
     tk = system.trackers["SLAM"]
     caps = cfg["caps"]
     n = len(seq.pairs)
     t0 = time.perf_counter()
     for i in range(n):
-        system.track_stereo(seq.pairs[i, 0], seq.pairs[i, 1], timestamp=seq.frame_dt * i,
-                            frame_id=i)
+        feed(i)
         if (i + 1) % 100 == 0 or i + 1 == n:
             system.flush()
             states, _ = _states(tk)

@@ -22,23 +22,29 @@ TINY_CAMERA = {"fx": 210.0, "fy": 210.0, "cx": 192.0, "cy": 120.0, "width": 384,
                "height": 240, "bf": 25.2, "th_depth": 35.0}
 
 
-def make_tiny(root: Path, limits: dict | None = None) -> Path:
+def make_tiny(root: Path, limits: dict | None = None, traffic: dict | None = None,
+              config: dict | None = None, checks: dict | None = None) -> Path:
     """A throwaway benchmark in ``root``: this checkout's metric readers
-    and one small cell ``tiny.explore`` (384x240, 400 features, the
-    explore motion), made from the files alone."""
+    and one small cell ``tiny.explore`` (384x240, 400 features, by default
+    the explore motion), made from the files alone. ``traffic`` replaces
+    the mix, ``config`` adds keys to the configuration (``cameras``,
+    ``finalize``), ``checks`` maps a number to the source of its
+    checks/<number>.py."""
     bench = root / "benchmark"
-    for d in ("configs", "traffic", "limits"):
+    for d in ("configs", "traffic", "limits", "checks"):
         (bench / d).mkdir(parents=True, exist_ok=True)
     shutil.copytree(ROOT / "benchmark" / "metrics", bench / "metrics",
                     ignore=shutil.ignore_patterns("__pycache__"))
     cfg = json.loads((ROOT / "benchmark/configs/hyslam-zedmini-720p.json").read_text())
     cfg.update(name="tiny", camera=TINY_CAMERA,
                extractor=dict(cfg["extractor"], n_features=400),
-               caps={"K": 64, "L": 8192, "F": 512, "O": 8})
+               caps={"K": 64, "L": 8192, "F": 512, "O": 8}, **(config or {}))
     (bench / "configs/tiny.json").write_text(json.dumps(cfg))
-    tr = json.loads((ROOT / "benchmark/traffic/explore.json").read_text())
+    tr = traffic or json.loads((ROOT / "benchmark/traffic/explore.json").read_text())
     tr.update(warm_frames=8, max_fps=4)
     (bench / "traffic/tiny_explore.json").write_text(json.dumps(tr))
+    for name, source in (checks or {}).items():
+        (bench / "checks" / f"{name}.py").write_text(source)
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
     spec["configs"] = [{"name": "tiny", "source": "a test", "file": "benchmark/configs/tiny.json",
                         "reduced": [], "why": "a test"}]

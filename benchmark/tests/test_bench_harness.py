@@ -91,7 +91,7 @@ def test_k1_bound_is_chip_smokes(n_obs, n_valid, n_inl, rounds, iters):
 
 
 def test_renderer_same_bits_for_a_seed():
-    cam = sequence.Camera(210.0, 210.0, 192.0, 120.0, 384, 240, 25.2)
+    cam = {"SLAM": sequence.Camera(210.0, 210.0, 192.0, 120.0, 384, 240, 25.2)}
     tr = json.loads((ROOT / "benchmark/traffic/explore.json").read_text())
     tr.update(warm_frames=2, max_fps=2)
     a = sequence.build(cam, tr, 0.05, 2**40 + 9, 1.0, "cpu")
